@@ -6,13 +6,17 @@ Run from the root of a checkout, with no arguments:
 
     python3 chip_smoke.py
 
-It builds every kernel of the serving path from `paddle_tpu_torch/csrc/`,
-holds each kernel against its plain PyTorch version on the card, serves
-Transformer-base greedy decode through `ContinuousScheduler` ->
-`DecodeEngine` -> `IncrementalDecoder` with random weights made from a
-seed, checks that every decode step went through the kernel, compares
-the card's logits and tokens with the port's CPU run, and times each
-kernel beside its bound, its plain version and a PyTorch library call.
+It builds every kernel of the serving path from `paddle_tpu_torch/csrc/`
+(one `nvcc` per source, all at once), holds each kernel against its
+plain PyTorch version on the card, and serves Transformer-base greedy
+decode through `ContinuousScheduler` -> `DecodeEngine` ->
+`IncrementalDecoder` with random weights made from a seed, twice: with
+the fp32 KV cache (kernel `decode_attend`) and with the int8 cache
+(kernels `quantize_int8_blockwise` and `dequant_attend`). For each run
+it checks that every decode step went through its kernels. It compares
+the card's logits and tokens with the port's CPU run, the int8 cache
+with the fp32 cache on the card, and times each kernel beside its
+bound, its plain version and, where one exists, a PyTorch library call.
 
 It imports nothing of JAX or of `paddle_tpu`. Where CUDA is not
 available, or any phase fails, it exits non-zero and prints no result.
@@ -21,6 +25,7 @@ Its last two lines are a JSON object of per-kernel numbers and then
 """
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -39,6 +44,18 @@ KERNEL_ATOL = 1e-5
 # BLAS sum in different orders through 6 layers and a 10000-way
 # projection; logits are O(10)
 LOGIT_ATOL = 2e-3
+# card against CPU with the int8 cache: K/V differ by ~1e-7 relative,
+# so an element near a .5 boundary of x / scale gets a code one step
+# apart on the two sides; one such flip moves one K or V element by
+# 1/127 of its block's absmax. Codes may differ by one step in at most
+# INT8_CODE_SHARE of the cache, logits by INT8_LOGIT_ATOL, and a token
+# only where the CPU logits' top-two margin is below INT8_LOGIT_ATOL.
+INT8_CODE_SHARE = 0.01
+INT8_LOGIT_ATOL = 2e-2
+# int8 cache against fp32 cache on the card, teacher-forced: the JAX
+# package's own bounds (tests/test_serving_farm.py, greedy)
+INT8_VS_FP32_TOKEN_SHARE = 0.02
+INT8_VS_FP32_LOGIT = 0.5
 
 
 class SmokeFailure(RuntimeError):
@@ -97,6 +114,17 @@ def device_ms(torch, fn, n_iter):
 
 
 # --------------------------------------------------------------- phases
+def _ptxas_summary(out):
+    """'regs a-b, spill stores x B, spill loads y B' from -Xptxas -v."""
+    regs = [int(r) for r in re.findall(r"Used (\d+) registers", out)]
+    st = sum(int(b) for b in re.findall(r"(\d+) bytes spill stores", out))
+    ld = sum(int(b) for b in re.findall(r"(\d+) bytes spill loads", out))
+    if not regs:
+        return "no ptxas report (library was already built)"
+    return (f"{len(regs)} kernels, regs {min(regs)}-{max(regs)}, spill "
+            f"stores {st} B, spill loads {ld} B")
+
+
 def phase_device_and_build(torch, _build):
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -109,10 +137,15 @@ def phase_device_and_build(torch, _build):
         f"count={torch.cuda.device_count()} torch={torch.__version__} "
         f"cuda={torch.version.cuda} python={sys.version.split()[0]}")
     t0 = time.perf_counter()
-    _build.load("decode_attention")
-    log(f"[build] nvcc {' '.join(_build.NVCC_FLAGS)} from "
-        f"{os.path.relpath(_build.CSRC)}/decode_attention.cu, "
-        f"build and load: {time.perf_counter() - t0:.2f} s")
+    built = _build.build()
+    for name in built:
+        _build.load(name)
+    for name, (sec, out) in built.items():
+        log(f"[build] {os.path.relpath(_build.CSRC)}/{name}.cu: nvcc "
+            f"{sec:.2f} s; {_ptxas_summary(out)}")
+    log(f"[build] nvcc {' '.join(_build.NVCC_FLAGS)}; {len(built)} "
+        f"sources in parallel, build and load: "
+        f"{time.perf_counter() - t0:.2f} s")
     return card
 
 
@@ -144,12 +177,98 @@ def phase_kernel_vs_plain(torch, da, dev):
     return worst
 
 
-def phase_serving(torch, da, tfm, dec_mod, params, cfg):
+def phase_quant_vs_plain(torch, qt, dev):
+    """The quantize kernel against its plain version on the card, bit
+    for bit: at the main path's shape (one [32, 8, 64] row set in blocks
+    of 64), at block sizes 4, 256 and the largest, on blocks that hold
+    an all-zero block and values whose quotient x / scale lies exactly
+    on k + 0.5 (half to even: 0.5 -> 0, 1.5 -> 2, 2.5 -> 2)."""
+    rng = np.random.default_rng(SEED + 6)
+    halves = np.array([0.5, 1.5, 2.5, -0.5, -1.5, -2.5, 126.5, -125.5],
+                      np.float32)
+    worst = 0.0
+    for n, bs in ((32 * 8 * 64, 64), (4 * 64, 4), (256 * 40, 256),
+                  (qt.MAX_BLOCK * 12, qt.MAX_BLOCK)):
+        x = (rng.standard_normal(n, dtype=np.float32)
+             * np.repeat(np.exp(rng.uniform(-6, 4, n // bs)), bs)
+             ).astype(np.float32)
+        x[:bs] = 0.0
+        for b, unit in ((1, 1.0), (2, 2.0), (3, 0.5)):
+            blk = np.resize(halves, bs) * unit
+            blk[-1] = 127.0 * unit
+            x[b * bs:(b + 1) * bs] = blk
+        xt = torch.from_numpy(x).to(dev)
+        codes, scales = qt.quantize_int8_blockwise(xt, bs)
+        torch.cuda.synchronize()
+        pc, ps = qt.quantize_int8_blockwise_plain(xt, bs)
+        check(codes.dtype == torch.int8 and scales.dtype == torch.float32
+              and tuple(codes.shape) == (n // bs, bs)
+              and tuple(scales.shape) == (n // bs, 1), "quantize shapes")
+        same_c = bool(torch.equal(codes, pc))
+        same_s = bool(torch.equal(scales, ps))
+        err_c = int((codes.int() - pc.int()).abs().max())
+        err_s = float((scales - ps).abs().max())
+        worst = max(worst, err_c, err_s)
+        ties = codes[1, :min(bs, 8)].tolist()
+        log(f"[kernel] quantize_int8_blockwise n={n} block_size={bs}: "
+            f"codes identical={same_c} (max |diff| {err_c}) scales "
+            f"identical={same_s} (max |diff| {err_s:.3e}); zero "
+            f"block scale={float(scales[0, 0])} tie codes={ties}")
+        check(same_c and same_s, "quantize kernel is not bit-identical "
+              "to its plain version")
+        check(float(scales[0, 0]) == 0.0 and not bool(codes[0].any()),
+              "zero block must store scale 0 and codes 0")
+    return worst
+
+
+def phase_dequant_vs_plain(torch, da, qt, dev):
+    """The int8 attention kernel against its plain version on the card,
+    on caches quantized from random K/V by the plain quantizer, at head
+    widths 16, 64 and 128 with one scale per row and several."""
+    worst = 0.0
+    rng = np.random.default_rng(SEED + 7)
+    for S, T, H, Dh, kvb in ((32, 256, 8, 64, 64), (32, 256, 8, 64, 16),
+                             (32, 256, 8, 16, 16), (32, 256, 8, 16, 4),
+                             (32, 256, 8, 128, 128), (32, 256, 8, 128, 32),
+                             (32, 2048, 8, 64, 64)):
+        pos = rng.integers(0, T, S).astype(np.int32)
+        pos[:5] = (-1, 0, T - 1, T, T + 7)
+        q = torch.from_numpy(rng.standard_normal(
+            (S, H, Dh), dtype=np.float32)).to(dev)
+        cache = []
+        for _ in range(2):
+            x = torch.from_numpy(rng.standard_normal(
+                S * T * H * Dh, dtype=np.float32)).to(dev)
+            c, sc = qt.quantize_int8_blockwise_plain(x, kvb)
+            cache += [c.reshape(S, T, H, Dh),
+                      sc.reshape(S, T, H, Dh // kvb)]
+        kq, ks, vq, vs = cache
+        pos_t = torch.from_numpy(pos).to(dev)
+        got = da.dequant_attend(q, kq, ks, vq, vs, pos_t)
+        torch.cuda.synchronize()
+        ref = da.dequant_attend_plain(q, kq, ks, vq, vs, pos_t)
+        torch.cuda.synchronize()
+        check(bool(torch.isfinite(got).all()), "kernel output not finite")
+        check(not bool(got[0].any()), "pos -1 must give a zero row")
+        err = float((got - ref).abs().max())
+        log(f"[kernel] dequant_attend S={S} T={T} H={H} Dh={Dh} "
+            f"kv_block={kvb} (nb={Dh // kvb}) pos[:5]={pos[:5].tolist()} "
+            f"max_abs_err={err:.3e} (bound {KERNEL_ATOL:.0e})")
+        check(err <= KERNEL_ATOL, f"kernel disagrees with plain: {err}")
+        worst = max(worst, err)
+    return worst
+
+
+def phase_serving(torch, kern, tfm, dec_mod, params, cfg, kv_quant=None):
     """Transformer-base continuous decode on the card: 48 requests of
     mixed source lengths and budgets, half of them arriving while the
-    first half is in flight."""
+    first half is in flight, with the fp32 or the int8 KV cache. Every
+    launch count is set to 0 just before the run and read just after:
+    each decode step must launch the cache's kernels once per layer
+    (quantize twice, for K and V) and the other cache's never."""
     engine = dec_mod.DecodeEngine(
-        cfg, params, dec_mod.DecodeEngineConfig(num_slots=32, max_len=256))
+        cfg, params, dec_mod.DecodeEngineConfig(num_slots=32, max_len=256,
+                                                kv_quant=kv_quant))
     sched = dec_mod.ContinuousScheduler(
         engine, config=dec_mod.DecodeConfig(bos=0, eos=None))
     check(engine.device.type == "cuda", f"engine on {engine.device}")
@@ -178,7 +297,8 @@ def phase_serving(torch, da, tfm, dec_mod, params, cfg):
         n = int(rng.integers(8, 65))
         reqs.append((rng.integers(2, cfg.src_vocab, n), n,
                      int(rng.integers(8, 97))))
-    da.LAUNCHES = 0
+    for name in kern.LAUNCHES:
+        kern.LAUNCHES[name] = 0
     steps.clear()
     spent.update(step=0.0, admit=0.0)
     t0 = time.perf_counter()
@@ -199,7 +319,7 @@ def phase_serving(torch, da, tfm, dec_mod, params, cfg):
         wall = time.perf_counter() - t0
     finally:
         sched.stop(drain=True, timeout=60)
-    launches = da.LAUNCHES
+    launches = dict(kern.LAUNCHES)
     check(not sched.alive, "decode loop still running after stop")
     tokens = 0
     for (src, n, m), r in zip(reqs, results):
@@ -210,30 +330,37 @@ def phase_serving(torch, da, tfm, dec_mod, params, cfg):
         tokens += len(r.tokens)
     distinct = len(np.unique(np.concatenate([r.tokens for r in results])))
     streams = len({r.tokens.tobytes() for r in results})
+    L, n = cfg.n_layer, len(steps)
+    want = ({"decode_attend": 0, "dequant_attend": L * n,
+             "quantize_int8_blockwise": 2 * L * n} if kv_quant == "int8"
+            else {"decode_attend": L * n, "dequant_attend": 0,
+                  "quantize_int8_blockwise": 0})
     log(f"[serve] Transformer-base d_model={cfg.d_model} "
         f"d_inner={cfg.d_inner} heads={cfg.n_head} layers={cfg.n_layer} "
-        f"vocab={cfg.trg_vocab}; slots=32 max_len=256: "
+        f"vocab={cfg.trg_vocab}; slots=32 max_len=256 "
+        f"kv_quant={kv_quant or 'fp32'} kv_cache_bytes="
+        f"{engine.kv_cache_bytes}: "
         f"requests={len(results)} tokens={tokens} "
         f"distinct_tokens={distinct} distinct_streams={streams} "
         f"in_flight_at_second_wave={in_flight} "
         f"wall_s={wall:.3f} tokens_per_s={tokens / wall:.1f} "
-        f"decode_steps={len(steps)} LAUNCHES={launches} "
-        f"(= {cfg.n_layer} x {len(steps)} required); host time in "
-        f"steps_s={spent['step']:.3f} (mean_step_ms="
-        f"{spent['step'] / max(1, len(steps)) * 1e3:.3f}) "
+        f"decode_steps={n} LAUNCHES={launches} (required {want}); host "
+        f"time in steps_s={spent['step']:.3f} (mean_step_ms="
+        f"{spent['step'] / max(1, n) * 1e3:.3f}) "
         f"admit_prefill_s={spent['admit']:.3f} "
         f"rest_s={wall - spent['step'] - spent['admit']:.3f}")
     check(in_flight > 0, "second wave did not arrive mid-flight")
     check(distinct > 1 and streams > 1, "every request decoded alike")
-    check(len(steps) > 0 and launches == cfg.n_layer * len(steps),
-          f"LAUNCHES {launches} != {cfg.n_layer} x {len(steps)} steps")
+    check(n > 0 and launches == want,
+          f"LAUNCHES {launches} != {want} for {n} steps")
     return launches, steps, engine
 
 
 def phase_step_profile(torch, engine, pick, cfg):
     """Where one decode step's time goes with all 32 slots live at the
     serving run's median positions: host wall per step, device busy
-    time per step from torch.profiler, and the kernels that take it."""
+    time per step from torch.profiler, and the kernels that take it
+    (the port's own: `attend_kernel` and `quantize_kernel`)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     dec = engine.decoder
@@ -263,19 +390,23 @@ def phase_step_profile(torch, engine, pick, cfg):
             by_name[e.name] = by_name.get(e.name, 0.0) \
                 + e.time_range.elapsed_us() / n
     busy_us = sum(by_name.values())
+    cache = dec.kv_quant or "fp32"
     if busy_us == 0:
-        log(f"[profile] decode step, 32 live slots: host wall "
+        log(f"[profile] {cache} decode step, 32 live slots: host wall "
             f"{wall_ms:.3f} ms/step; device time not visible to "
             f"torch.profiler (not measured)")
         return
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
-    attn = sum(v for k, v in by_name.items() if "decode_attend" in k)
-    log(f"[profile] decode step, 32 live slots, attended_rows="
+    ours = "; ".join(
+        f"{kname} {us:.2f} us/step ({us / busy_us:.3f} of device time)"
+        for kname, us in (
+            (kname, sum(v for k, v in by_name.items() if kname in k))
+            for kname in ("attend_kernel", "quantize_kernel")) if us)
+    log(f"[profile] {cache} decode step, 32 live slots, attended_rows="
         f"{int(np.minimum(pick + 1, dec.max_len).sum())}: host wall "
         f"{wall_ms:.3f} ms/step (unprofiled); device busy "
         f"{busy_us / 1e3:.3f} ms/step -> idle share "
-        f"{max(0.0, 1 - busy_us / 1e3 / wall_ms):.3f}; decode_attend "
-        f"{attn:.2f} us/step ({attn / busy_us:.3f} of device time); "
+        f"{max(0.0, 1 - busy_us / 1e3 / wall_ms):.3f}; {ours}; "
         f"top device ops us/step: "
         + "; ".join(f"{k[:60]}={v:.1f}" for k, v in top))
 
@@ -312,6 +443,98 @@ def phase_card_vs_cpu(tfm, params, cfg):
     check(worst <= LOGIT_ATOL, f"logits differ by {worst}")
 
 
+def _decoders(tfm, params, cfg, S, T, seed, specs):
+    """One decoder for each dict of keyword arguments in `specs` (device
+    None = the card), each with S slots prefilled from the same random
+    sources, and their states."""
+    rng = np.random.default_rng(seed)
+    lens = rng.integers(5, 65, S)
+    src = np.zeros((S, T), np.int64)
+    for r, n in enumerate(lens):
+        src[r, :n] = rng.integers(2, cfg.src_vocab, n)
+    decs = [tfm.IncrementalDecoder(cfg, params, S, max_len=T,
+                                   return_logits=True, **kw)
+            for kw in specs]
+    states = [d.write_slots(d.init_state(), d.prefill(src, lens),
+                            list(range(S))) for d in decs]
+    return decs, states
+
+
+def phase_int8_card_vs_cpu(tfm, params, cfg):
+    """The card's int8 decode against the port's CPU run (plain
+    versions) from the same params, teacher-forced on the CPU's tokens:
+    logits within INT8_LOGIT_ATOL, a token differing only where the CPU
+    logits' top-two margin is below it, and the written cache codes at
+    most one step apart in at most INT8_CODE_SHARE of them."""
+    S, T, n_steps = 4, 256, 8
+    decs, states = _decoders(tfm, params, cfg, S, T, SEED + 8,
+                             [dict(kv_quant="int8"),
+                              dict(kv_quant="int8", device="cpu")])
+    ids = np.zeros(S, np.int64)
+    pos0 = np.array([0, 3, 9, 1], np.int64)   # slots at their own depths
+    pos = pos0.copy()
+    worst, flips, close = 0.0, 0, 0
+    for _ in range(n_steps):
+        card, cpu = (d.step(st, ids, pos) for d, st in zip(decs, states))
+        lg_card, lg_cpu = decs[0].last_logits, decs[1].last_logits
+        worst = max(worst, float(np.abs(lg_card - lg_cpu).max()))
+        top2 = np.sort(lg_cpu, axis=-1)[:, -2:]
+        margin = top2[:, 1] - top2[:, 0]
+        close += int((margin < INT8_LOGIT_ATOL).sum())
+        differ = card != cpu
+        check(bool(np.all(margin[differ] < INT8_LOGIT_ATOL)),
+              f"int8 card token {card} != cpu {cpu} at top-two margins "
+              f"{margin}")
+        flips += int(differ.sum())
+        ids, pos = cpu.astype(np.int64), pos + 1
+    written = np.zeros((S, T), bool)
+    for s in range(S):
+        written[s, pos0[s]:pos0[s] + n_steps] = True
+    n_codes, apart, far = 0, 0, 0
+    for name in ("kc_q", "vc_q"):
+        a = states[0][name].cpu().numpy()[:, written].astype(np.int32)
+        b = states[1][name].numpy()[:, written].astype(np.int32)
+        n_codes += a.size
+        apart += int((a != b).sum())
+        far += int((np.abs(a - b) > 1).sum())
+    log(f"[card-vs-cpu int8] {S} slots x {n_steps} steps, teacher-forced "
+        f"on the CPU's tokens: max |logit diff|={worst:.3e} (bound "
+        f"{INT8_LOGIT_ATOL:.0e}); tokens differing={flips} (allowed only "
+        f"under the margin; {close} slot-steps were under it); written "
+        f"codes one step apart={apart} of {n_codes}, more than one "
+        f"step={far}")
+    check(worst <= INT8_LOGIT_ATOL, f"int8 logits differ by {worst}")
+    check(far == 0 and apart <= INT8_CODE_SHARE * n_codes,
+          f"int8 codes: {apart} one step apart, {far} further")
+
+
+def phase_int8_vs_fp32(tfm, params, cfg):
+    """The int8 cache against the fp32 cache, both on the card, 32
+    slots x 24 steps teacher-forced on the fp32 tokens: greedy tokens
+    differ in at most 2 % of slot-steps and logits by less than 0.5,
+    the JAX package's own bounds for its int8 cache."""
+    S, T, n_steps = 32, 256, 24
+    decs, states = _decoders(tfm, params, cfg, S, T, SEED + 9,
+                             [dict(), dict(kv_quant="int8")])
+    ids = np.zeros(S, np.int64)
+    pos = np.arange(S, dtype=np.int64) % 8
+    worst, flips = 0.0, 0
+    for _ in range(n_steps):
+        f32, i8 = (d.step(st, ids, pos) for d, st in zip(decs, states))
+        worst = max(worst, float(np.abs(decs[0].last_logits
+                                        - decs[1].last_logits).max()))
+        flips += int((f32 != i8).sum())
+        ids, pos = f32.astype(np.int64), pos + 1
+    share = flips / (S * n_steps)
+    log(f"[int8-vs-fp32] card, {S} slots x {n_steps} steps, "
+        f"teacher-forced on the fp32 tokens: tokens differing="
+        f"{flips} ({share:.4f}; bound {INT8_VS_FP32_TOKEN_SHARE}), max "
+        f"|logit diff|={worst:.3e} (bound {INT8_VS_FP32_LOGIT})")
+    check(share <= INT8_VS_FP32_TOKEN_SHARE,
+          f"int8 tokens differ in {share:.4f} of slot-steps")
+    check(worst < INT8_VS_FP32_LOGIT, f"int8 logits drift by {worst}")
+
+
 def median_step(steps, T):
     """The pos vector of the serving run's median step by attended
     rows."""
@@ -329,8 +552,7 @@ def phase_times(torch, da, steps, cfg, dev):
     Dh = cfg.d_model // H
     pick = median_step(steps, T)
     n_rows = int(np.minimum(pick + 1, T).sum())
-    l2 = torch.cuda.get_device_properties(dev).L2_cache_size
-    L = -(-4 * l2 // (2 * n_rows * H * Dh * 4))
+    L, l2 = _l2_copies(torch, dev, 2 * n_rows * H * Dh * 4)
     rng = np.random.default_rng(SEED + 4)
     q = torch.from_numpy(rng.standard_normal((S, H, Dh),
                                              dtype=np.float32)).to(dev)
@@ -364,9 +586,7 @@ def phase_times(torch, da, steps, cfg, dev):
     k2_ms = device_ms(torch, kern, 500)
     nbytes = 2 * n_rows * H * Dh * 4 + 2 * S * H * Dh * 4 + S * 4
     flops = 4 * n_rows * H * Dh
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / FP32_FLOPS
-    bound_ms = max(t_bytes, t_ops) * 1e3
-    bound_by = "bytes" if t_bytes >= t_ops else "operations"
+    bound_ms, bound_by = _bound(nbytes, flops)
     log(f"[times] decode_attend S={S} T={T} H={H} Dh={Dh} "
         f"attended_rows={n_rows} (median step of {len(steps)}), "
         f"{L} cache copies cycled (L2 {l2} B): "
@@ -378,6 +598,118 @@ def phase_times(torch, da, steps, cfg, dev):
             "bound_by": bound_by, "library_ms": l_ms}
 
 
+def _l2_copies(torch, dev, nbytes):
+    """How many copies of `nbytes` of inputs together exceed four times
+    the L2 cache, so that cycling through them reads from HBM."""
+    l2 = torch.cuda.get_device_properties(dev).L2_cache_size
+    return -(-4 * l2 // nbytes), l2
+
+
+def _bound(nbytes, ops):
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / FP32_FLOPS
+    return max(t_bytes, t_ops) * 1e3, \
+        ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def phase_times_quant(torch, qt, cfg, dev):
+    """Quantize kernel and plain times at the main path's shape: one
+    layer's new K (or V) rows of all 32 slots, 32 x 8 x 64 fp32 in
+    blocks of 64. The timed calls cycle through input copies that
+    together exceed four times the L2 cache."""
+    S, H = 32, cfg.n_head
+    Dh = cfg.d_model // H
+    n, bs = S * H * Dh, Dh
+    L, l2 = _l2_copies(torch, dev, n * 4)
+    x = torch.randn((L, n), device=dev,
+                    generator=torch.Generator(dev).manual_seed(SEED + 10))
+
+    def kern(i):
+        return qt.quantize_int8_blockwise(x[i % L], bs)
+
+    def plain(i):
+        return qt.quantize_int8_blockwise_plain(x[i % L], bs)
+
+    k_ms = device_ms(torch, kern, 500)
+    p_ms = device_ms(torch, plain, 60)      # ~10 launches a call
+    k2_ms = device_ms(torch, kern, 500)
+    nbytes = n * 4 + n + (n // bs) * 4
+    ops = 5 * n             # abs, max, divide, round, clip per element
+    bound_ms, bound_by = _bound(nbytes, ops)
+    log(f"[times] quantize_int8_blockwise n={n} block_size={bs} "
+        f"({L} input copies cycled, L2 {l2} B): kernel_ms={k_ms:.6f} "
+        f"(repeat {k2_ms:.6f}) bound_us={bound_ms * 1e3:.4f} "
+        f"({bound_by}: {nbytes} B, {ops} ops) plain_ms={p_ms:.6f} "
+        f"library_ms=none (no single PyTorch call quantizes)")
+    return {"ms": k_ms, "plain_ms": p_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by, "library_ms": None}
+
+
+def phase_times_dequant(torch, da, steps, cfg, dev):
+    """int8 attention kernel and plain times at the main path's shape
+    (S=32, T=256, H=8, Dh=64, one scale per head row) on the int8
+    serving run's median decode step. The timed calls cycle through
+    cache copies whose attended codes and scales together exceed four
+    times the L2 cache. For information only, dequantizing both caches
+    and calling scaled_dot_product_attention (several calls: cast and
+    multiply for K and for V, then sdpa) is timed too."""
+    S, T, H = 32, 256, cfg.n_head
+    Dh = cfg.d_model // H
+    nb = 1
+    pick = median_step(steps, T)
+    n_rows = int(np.minimum(pick + 1, T).sum())
+    L, l2 = _l2_copies(torch, dev, 2 * n_rows * H * (Dh + 4 * nb))
+    gen = torch.Generator(dev).manual_seed(SEED + 11)
+    kq, vq = (torch.randint(-127, 128, (L, S, T, H, Dh), device=dev,
+                            dtype=torch.int8, generator=gen)
+              for _ in range(2))
+    ks, vs = (0.005 + 0.015 * torch.rand((L, S, T, H, nb), device=dev,
+                                         generator=gen)
+              for _ in range(2))
+    q = torch.randn((S, H, Dh), device=dev, generator=gen)
+    pos = torch.from_numpy(pick.astype(np.int32)).to(dev)
+    scale = Dh ** -0.5
+    keep = (torch.arange(T, device=dev)[None, :]
+            <= pos.long()[:, None])[:, None, None, :]       # [S,1,1,T]
+    F = torch.nn.functional
+
+    def kern(i):
+        j = i % L
+        return da.dequant_attend(q, kq[j], ks[j], vq[j], vs[j], pos, scale)
+
+    def plain(i):
+        j = i % L
+        return da.dequant_attend_plain(q, kq[j], ks[j], vq[j], vs[j], pos,
+                                       scale)
+
+    def dequant_sdpa(i):
+        j = i % L
+        k = kq[j].float() * ks[j]           # nb = 1: one scale per row
+        v = vq[j].float() * vs[j]
+        return F.scaled_dot_product_attention(
+            q[:, :, None, :], k.permute(0, 2, 1, 3), v.permute(0, 2, 1, 3),
+            attn_mask=keep, scale=scale)[:, :, 0]
+
+    two_err = float((dequant_sdpa(0) - kern(0)).abs().max())
+    k_ms = device_ms(torch, kern, 500)
+    p_ms = device_ms(torch, plain, 40)
+    d_ms = device_ms(torch, dequant_sdpa, 150)
+    k2_ms = device_ms(torch, kern, 500)
+    nbytes = (2 * n_rows * H * Dh + 2 * n_rows * H * nb * 4
+              + 2 * S * H * Dh * 4 + S * 4)
+    ops = 6 * n_rows * H * Dh   # per element of k and v: multiply, fma
+    bound_ms, bound_by = _bound(nbytes, ops)
+    log(f"[times] dequant_attend S={S} T={T} H={H} Dh={Dh} nb={nb} "
+        f"attended_rows={n_rows} (median step of {len(steps)}), "
+        f"{L} cache copies cycled (L2 {l2} B): kernel_ms={k_ms:.6f} "
+        f"(repeat {k2_ms:.6f}) bound_us={bound_ms * 1e3:.3f} "
+        f"({bound_by}: {nbytes} B, {ops} flop) plain_ms={p_ms:.6f} "
+        f"library_ms=none; for information, dequantize K and V + sdpa "
+        f"(five calls) ms={d_ms:.6f}, its max_abs vs kernel="
+        f"{two_err:.3e}")
+    return {"ms": k_ms, "plain_ms": p_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by, "library_ms": None}
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -385,8 +717,10 @@ def main():
               "on a card", file=sys.stderr)
         return 2
     try:
+        from paddle_tpu_torch.ops import kern
         from paddle_tpu_torch.ops.kern import _build
         from paddle_tpu_torch.ops.kern import decode_attention as da
+        from paddle_tpu_torch.ops.kern import quant as qt
         from paddle_tpu_torch.models import transformer as tfm
         from paddle_tpu_torch.serving import decode as dec_mod
     except ImportError as e:
@@ -398,24 +732,45 @@ def main():
         dev = torch.device("cuda", 0)
         torch.cuda.set_device(dev)
         phase_device_and_build(torch, _build)
-        max_err = phase_kernel_vs_plain(torch, da, dev)
+        err = {"decode_attend": phase_kernel_vs_plain(torch, da, dev),
+               "quantize_int8_blockwise": phase_quant_vs_plain(torch, qt,
+                                                               dev),
+               "dequant_attend": phase_dequant_vs_plain(torch, da, qt,
+                                                        dev)}
         cfg = tfm.TransformerConfig.base()
         params = base_params(tfm, cfg, SEED)
-        launches, steps, engine = phase_serving(torch, da, tfm, dec_mod,
-                                                params, cfg)
+        # each path's counts are read just after its own run
+        runs = {q: phase_serving(torch, kern, tfm, dec_mod, params, cfg,
+                                 kv_quant=q) for q in (None, "int8")}
+        launches = {"decode_attend": runs[None][0]["decode_attend"]}
+        launches.update((k, runs["int8"][0][k]) for k in
+                        ("dequant_attend", "quantize_int8_blockwise"))
         phase_card_vs_cpu(tfm, params, cfg)
-        times = phase_times(torch, da, steps, cfg, dev)
-        phase_step_profile(torch, engine, median_step(steps, 256), cfg)
+        phase_int8_card_vs_cpu(tfm, params, cfg)
+        phase_int8_vs_fp32(tfm, params, cfg)
+        times = {"decode_attend": phase_times(torch, da, runs[None][1],
+                                              cfg, dev),
+                 "quantize_int8_blockwise": phase_times_quant(torch, qt,
+                                                              cfg, dev),
+                 "dequant_attend": phase_times_dequant(
+                     torch, da, runs["int8"][1], cfg, dev)}
+        for _launches, steps, engine in runs.values():
+            phase_step_profile(torch, engine, median_step(steps, 256), cfg)
     except Exception:           # noqa: BLE001 — any failed phase
         traceback.print_exc()
         print("chip_smoke: FAILED", file=sys.stderr)
         return 1
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
+    where = {"decode_attend": ("decode_attention.cu",
+                               "decode_attention.py:108"),
+             "dequant_attend": ("decode_attention.cu",
+                                "decode_attention.py:123"),
+             "quantize_int8_blockwise": ("quant.cu", "quant.py:79")}
     print(json.dumps({"kernels": [dict(
-        name="decode_attend", route="cuda",
-        source="paddle_tpu_torch/csrc/decode_attention.cu",
-        replaces="paddle_tpu/ops/kern/decode_attention.py:108",
-        launches=launches, max_abs_err=max_err, **times)]}), flush=True)
+        name=name, route="cuda", source=f"paddle_tpu_torch/csrc/{src}",
+        replaces=f"paddle_tpu/ops/kern/{tpu}", launches=launches[name],
+        max_abs_err=err[name], **times[name])
+        for name, (src, tpu) in where.items()]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -4,12 +4,14 @@ NVIDIA H100 (counterpart of `paddle_tpu/__init__.py`).
 The port grows slice by slice beside the JAX package, which stays the
 reference: `paddle_tpu_torch/<path>.py` ports `paddle_tpu/<path>.py`.
 The port imports `torch` and numpy, never `jax` and nothing of
-`paddle_tpu`. Its first slice serves Transformer-base greedy decode
-through the continuous-batching scheduler:
+`paddle_tpu`. It serves Transformer-base greedy decode through the
+continuous-batching scheduler, with an fp32 or an int8 KV cache:
 
     serving.decode.ContinuousScheduler -> serving.decode.DecodeEngine
       -> models.transformer.IncrementalDecoder
-      -> ops.kern.decode_attention.decode_attend (CUDA, sm_90a)
+      -> ops.kern.decode_attention.decode_attend (CUDA, sm_90a), or
+         ops.kern.quant.quantize_int8_blockwise and
+         ops.kern.decode_attention.dequant_attend (CUDA, sm_90a)
 
 Entry points run on the card unless the caller passes ``device="cpu"``;
 without CUDA and without an explicit CPU device they raise.

@@ -1,21 +1,25 @@
 """Transformer-base NMT incremental (KV-cached) decode on PyTorch
 (counterpart of `paddle_tpu/models/transformer.py`: `TransformerConfig`
 :19, `convert_qkv_checkpoint` :248, `_ln_index` :284, `decode_params`
-:296 and `IncrementalDecoder` :327 with the fp32 cache).
+:296 and `IncrementalDecoder` :327 with the fp32 and the int8 cache).
 
 The JAX decoder jit-compiles one prefill per row bucket and one step
 function and donates the cache buffers to them. The port runs eagerly:
-the cache tensors are updated in place, which stands in for donation,
-and the step's self-attention over the slot pool is the hand-written
-CUDA kernel `ops.kern.decode_attention.decode_attend` on the card (its
-plain version on the CPU). Weights arrive as numpy arrays in either
-checkpoint layout through `params_from_numpy`.
+the cache tensors are updated in place, which stands in for donation.
+On the card the step's self-attention over the slot pool is a
+hand-written CUDA kernel: `ops.kern.decode_attention.decode_attend`
+over the fp32 cache, or `dequant_attend` over the int8 cache, whose
+rows `ops.kern.quant.quantize_int8_blockwise` (a CUDA kernel too)
+quantizes as they are written. On the CPU the same calls take their
+plain versions. Weights arrive as numpy arrays in either checkpoint
+layout through `params_from_numpy`.
 """
 import numpy as np
 import torch
 
 from ..device import resolve_device
-from ..ops.kern.decode_attention import decode_attend
+from ..ops.kern.decode_attention import decode_attend, dequant_attend
+from ..ops.kern.quant import quantize_int8_blockwise
 from ..ops.kernels_nn import _attn_softmax
 
 __all__ = ["TransformerConfig", "convert_qkv_checkpoint", "param_shapes",
@@ -187,8 +191,11 @@ class IncrementalDecoder:
 
     ``device`` defaults to the card and raises without one; pass
     ``"cpu"`` to run the plain versions on the CPU. ``kv_quant="int8"``
-    is the next slice and raises NotImplementedError. With
-    ``return_logits`` the step keeps the [S, V] logits on
+    stores the self-attention caches as int8 codes with fp32 absmax
+    scales over ``kv_block``-wide blocks of the head dim (default: the
+    whole head), quantized as each row is written and dequantized
+    inside the attention kernel; the cross-attention caches stay fp32.
+    With ``return_logits`` the step keeps the [S, V] logits on
     ``last_logits`` (numpy).
     """
 
@@ -206,16 +213,17 @@ class IncrementalDecoder:
         self.temperature = float(temperature)
         if kv_quant in ("", "fp32", "none"):
             kv_quant = None
-        if kv_quant == "int8":
-            raise NotImplementedError(
-                "kv_quant='int8' (the int8 KV cache with its dequantize-"
-                "attend and quantize kernels) is the next slice of the "
-                "port; this decoder keeps the fp32 cache")
-        if kv_quant is not None:
+        if kv_quant not in (None, "int8"):
             raise ValueError(f"kv_quant={kv_quant!r} not in "
                              f"(None, 'int8')")
-        if kv_block is not None:
-            raise ValueError("kv_block applies to the int8 cache only")
+        self.kv_quant = kv_quant
+        Dh = cfg.d_model // cfg.n_head
+        self.kv_block = int(kv_block or Dh)
+        if self.kv_quant and (self.kv_block < 1
+                              or Dh % self.kv_block != 0):
+            raise ValueError(
+                f"kv_block={self.kv_block} must divide the head dim "
+                f"{Dh} so scales broadcast over whole blocks")
         self.device = resolve_device(device)
         self.return_logits = bool(return_logits)
         self.last_logits = None
@@ -250,22 +258,36 @@ class IncrementalDecoder:
 
     def init_state(self):
         """Fresh slot state on this decoder's device: kc/vc
-        [L,S,T,H,Dh] self-attention caches, ck/cv [L,S,Ts,H,Dh]
-        cross-attention caches, src_bias [S,1,1,Ts]."""
+        [L,S,T,H,Dh] self-attention caches (or, with kv_quant="int8",
+        kc_q/vc_q int8 codes and kc_s/vc_s fp32 scales
+        [L,S,T,H,Dh/kv_block]), ck/cv [L,S,Ts,H,Dh] cross-attention
+        caches, src_bias [S,1,1,Ts]."""
         L, S, T, Ts, H, Dh = self._dims()
 
-        def z(*shape):
-            return torch.zeros(shape, dtype=torch.float32,
-                               device=self.device)
-        return {"kc": z(L, S, T, H, Dh), "vc": z(L, S, T, H, Dh),
-                "ck": z(L, S, Ts, H, Dh), "cv": z(L, S, Ts, H, Dh),
-                "src_bias": z(S, 1, 1, Ts)}
+        def z(*shape, dtype=torch.float32):
+            return torch.zeros(shape, dtype=dtype, device=self.device)
+        if self.kv_quant == "int8":
+            nb = Dh // self.kv_block
+            state = {"kc_q": z(L, S, T, H, Dh, dtype=torch.int8),
+                     "kc_s": z(L, S, T, H, nb),
+                     "vc_q": z(L, S, T, H, Dh, dtype=torch.int8),
+                     "vc_s": z(L, S, T, H, nb)}
+        else:
+            state = {"kc": z(L, S, T, H, Dh), "vc": z(L, S, T, H, Dh)}
+        state.update(ck=z(L, S, Ts, H, Dh), cv=z(L, S, Ts, H, Dh),
+                     src_bias=z(S, 1, 1, Ts))
+        return state
 
     def kv_cache_bytes(self):
-        """Analytic slot-state footprint in bytes."""
+        """Analytic slot-state footprint in bytes (self-attention codes
+        and scales or fp32 caches, cross-attention caches, src bias)."""
         L, S, T, Ts, H, Dh = self._dims()
-        return 2 * L * S * T * H * Dh * 4 + 2 * L * S * Ts * H * Dh * 4 \
-            + S * Ts * 4
+        n_self = L * S * T * H * Dh
+        if self.kv_quant == "int8":
+            self_b = 2 * (n_self + (n_self // self.kv_block) * 4)
+        else:
+            self_b = 2 * n_self * 4
+        return self_b + 2 * L * S * Ts * H * Dh * 4 + S * Ts * 4
 
     # --------------------------------------------------------- running
     @torch.no_grad()
@@ -329,6 +351,17 @@ class IncrementalDecoder:
         state["src_bias"][idx] = src_bias[:n]
         return state
 
+    def _write_int8(self, codes, scales, i, pos_l, new):
+        """Quantize the new rows `new` [S, H*Dh] in kv_block-wide blocks
+        and write their codes and scales at (layer i, slot, pos) in
+        place (the reference's int8 `cache_write`)."""
+        S, H = self.num_slots, self.cfg.n_head
+        Dh = self.cfg.d_model // H
+        q8, sc = quantize_int8_blockwise(new.reshape(-1),
+                                         block_size=self.kv_block)
+        codes[i, self._rows, pos_l] = q8.reshape(S, H, Dh)
+        scales[i, self._rows, pos_l] = sc.reshape(S, H, Dh // self.kv_block)
+
     @torch.no_grad()
     def step(self, state, ids, pos, seed=0):
         """One decode iteration for ALL slots: the current token id and
@@ -351,18 +384,30 @@ class IncrementalDecoder:
         pos_t = torch.from_numpy(pos.astype(np.int32)).to(dev)
         pos_l = pos_t.long()
         scale = Dh ** -0.5
-        kc, vc = state["kc"], state["vc"]
+        quant = self.kv_quant == "int8"
+        if quant:
+            kq, ks = state["kc_q"], state["kc_s"]
+            vq, vs = state["vc_q"], state["vc_s"]
+        else:
+            kc, vc = state["kc"], state["vc"]
         ck, cv, src_bias = state["ck"], state["cv"], state["src_bias"]
         x = p["trg_emb.w_0"][ids_t] * float(np.sqrt(D)) + self._pe[pos_l]
         for i in range(L):
             res = x
             q = _fc(x, p[f"dec{i}_self_q.w_0"]).reshape(S, H, Dh)
-            kc[i, self._rows, pos_l] = _fc(
-                x, p[f"dec{i}_self_k.w_0"]).reshape(S, H, Dh)
-            vc[i, self._rows, pos_l] = _fc(
-                x, p[f"dec{i}_self_v.w_0"]).reshape(S, H, Dh)
-            o = decode_attend(q.contiguous(), kc[i], vc[i], pos_t,
-                              scale).reshape(S, D)
+            if quant:
+                for codes, scales, w in ((kq, ks, "k"), (vq, vs, "v")):
+                    self._write_int8(codes, scales, i, pos_l, _fc(
+                        x, p[f"dec{i}_self_{w}.w_0"]))
+                o = dequant_attend(q.contiguous(), kq[i], ks[i], vq[i],
+                                   vs[i], pos_t, scale).reshape(S, D)
+            else:
+                kc[i, self._rows, pos_l] = _fc(
+                    x, p[f"dec{i}_self_k.w_0"]).reshape(S, H, Dh)
+                vc[i, self._rows, pos_l] = _fc(
+                    x, p[f"dec{i}_self_v.w_0"]).reshape(S, H, Dh)
+                o = decode_attend(q.contiguous(), kc[i], vc[i], pos_t,
+                                  scale).reshape(S, D)
             x = self._norm(_fc(o, p[f"dec{i}_self_o.w_0"]) + res, "dec", i,
                            "self")
             res = x

@@ -1,28 +1,34 @@
 """Single-token ragged decode attention over the slot-pool cache
-(counterpart of `paddle_tpu/ops/kern/decode_attention.py`: `decode_attend`
-at :169 and `decode_attend_reference` at :226).
+(counterpart of `paddle_tpu/ops/kern/decode_attention.py`:
+`decode_attend` at :169 and `decode_attend_reference` at :226 for the
+fp32 cache; `dequant_attend` at :194 and `dequant_attend_reference` at
+:243 for the int8 cache).
 
 The serving decoder keeps its KV cache as ``[slots, T_max, heads, Dh]``
 and every slot is a request at its own position, so slot s attends to
-t <= pos[s] of a fixed T_max buffer. `decode_attend` runs the hand-written
-CUDA kernel `csrc/decode_attention.cu` for CUDA tensors and the plain
-PyTorch version `decode_attend_plain` for CPU tensors; for a tensor on
-any other device, or a CUDA launch that fails, it raises. `LAUNCHES`
-counts kernel launches.
+t <= pos[s] of a fixed T_max buffer. The int8 cache holds codes of that
+shape and fp32 scales ``[slots, T_max, heads, Dh/qblock]``, one per
+block of qblock head elements. `decode_attend` and `dequant_attend` run
+the hand-written CUDA kernels of `csrc/decode_attention.cu` for CUDA
+tensors and their plain PyTorch versions for CPU tensors; for a tensor
+on any other device, or a CUDA launch that fails, they raise.
+`dequant_attend` never materialises a dequantized fp32 cache on the
+card: its kernel reads the codes and scales and dequantizes in
+registers. Each wrapper counts its kernel launches in `LAUNCHES`.
 
-Unlike the TPU kernel, the port has no pool-depth gate (the TPU's
-``MIN_T_DECODE``): on the card the kernel runs on every decode step.
+Unlike the TPU kernels, the port has no pool-depth gate (the TPU's
+``MIN_T_DECODE`` / ``MIN_T_DEQUANT``): on the card the kernels run on
+every decode step.
 """
 import ctypes
 
 import torch
 
 from ..kernels_nn import _attn_softmax
-from . import _build
+from . import LAUNCHES, _build, launch
 
-__all__ = ["decode_attend", "decode_attend_plain", "LAUNCHES", "MAX_DH"]
-
-LAUNCHES = 0    # kernel launches; the plain version never counts
+__all__ = ["decode_attend", "decode_attend_plain", "dequant_attend",
+           "dequant_attend_plain", "LAUNCHES", "MAX_DH"]
 
 MAX_DH = 256    # the kernel's lanes stride over at most 8 x 32 elements
 
@@ -46,87 +52,123 @@ def decode_attend_plain(q, k, v, pos, scale=None):
     return torch.where(live, out, torch.zeros_like(out))
 
 
-def _check(q, k, v, pos):
-    if q.dim() != 3 or k.dim() != 4 or v.dim() != 4 or pos.dim() != 1:
-        raise ValueError(
-            f"decode_attend wants q [S,H,Dh], k/v [S,T,H,Dh], pos [S]; "
-            f"got q {tuple(q.shape)}, k {tuple(k.shape)}, "
-            f"v {tuple(v.shape)}, pos {tuple(pos.shape)}")
+def dequant_attend_plain(q, kq, ks, vq, vs, pos, scale=None):
+    """Plain PyTorch version of the int8 kernel: the decoder's int8
+    composition (`dequant_attend_reference`): dequantize both caches to
+    fp32, code * scale broadcast over each block of qblock = Dh //
+    ks.shape[-1] elements, then `decode_attend_plain` (so pos[s] < 0
+    gives an all-zero row). q [S,H,Dh] f32, kq/vq [S,T,H,Dh] int8,
+    ks/vs [S,T,H,Dh/qblock] f32, pos [S] int -> [S,H,Dh] f32."""
+    S, T, H, Dh = kq.shape
+    nb = ks.shape[-1]
+    k = (kq.float().reshape(S, T, H, nb, Dh // nb)
+         * ks[..., None]).reshape(S, T, H, Dh)
+    v = (vq.float().reshape(S, T, H, nb, Dh // nb)
+         * vs[..., None]).reshape(S, T, H, Dh)
+    return decode_attend_plain(q, k, v, pos, scale)
+
+
+def _check(name, q, pos, caches, scales=()):
+    """Shapes: q [S,H,Dh], each cache [S,T,H,Dh] alike, each scale
+    [S,T,H,nb] alike with nb dividing Dh, pos [S]."""
+    shapes = ", ".join(f"{n} {tuple(t.shape)}" for n, t in
+                       (("q", q), *caches, *scales, ("pos", pos)))
+    if q.dim() != 3 or pos.dim() != 1 \
+            or any(t.dim() != 4 for _n, t in [*caches, *scales]):
+        raise ValueError(f"{name} wants q [S,H,Dh], caches [S,T,H,Dh]"
+                         f"{', scales [S,T,H,Dh/qblock]' if scales else ''}"
+                         f", pos [S]; got {shapes}")
     S, H, Dh = q.shape
-    if tuple(k.shape) != tuple(v.shape) or k.shape[0] != S \
-            or k.shape[2] != H or k.shape[3] != Dh \
-            or tuple(pos.shape) != (S,):
-        raise ValueError(
-            f"decode_attend shape mismatch: q {tuple(q.shape)}, "
-            f"k {tuple(k.shape)}, v {tuple(v.shape)}, "
-            f"pos {tuple(pos.shape)}")
+    c0 = tuple(caches[0][1].shape)
+    ok = (c0[0] == S and c0[2] == H and c0[3] == Dh
+          and tuple(pos.shape) == (S,)
+          and all(tuple(t.shape) == c0 for _n, t in caches))
+    if scales:
+        s0 = tuple(scales[0][1].shape)
+        ok = ok and s0[:3] == c0[:3] and s0[3] >= 1 and Dh % s0[3] == 0 \
+            and all(tuple(t.shape) == s0 for _n, t in scales)
+    if not ok:
+        raise ValueError(f"{name} shape mismatch: {shapes}")
 
 
-def _check_kernel_inputs(q, k, v, pos):
-    dev = q.device
-    for name, t in (("k", k), ("v", v), ("pos", pos)):
-        if t.device != dev:
-            raise ValueError(f"decode_attend: {name} is on {t.device}, "
-                             f"q on {dev}")
-    for name, t in (("q", q), ("k", k), ("v", v)):
-        if t.dtype != torch.float32:
-            raise TypeError(f"decode_attend kernel takes fp32 {name}, "
-                            f"got {t.dtype}")
-    if pos.dtype != torch.int32:
-        raise TypeError(f"decode_attend kernel takes int32 pos, got "
-                        f"{pos.dtype}")
-    for name, t in (("q", q), ("k", k), ("v", v), ("pos", pos)):
+def _on_cpu(name, tensors):
+    """True if every tensor lies on the CPU, False if every one lies on
+    one CUDA device; raises otherwise."""
+    devs = {t.device for _n, t in tensors}
+    if all(d.type == "cpu" for d in devs):
+        return True
+    if len(devs) == 1 and next(iter(devs)).type == "cuda":
+        return False
+    raise ValueError(f"{name} takes all-CPU or all-CUDA tensors; got "
+                     + ", ".join(f"{n} on {t.device}" for n, t in tensors))
+
+
+def _check_kernel_inputs(name, tensors, dtypes):
+    for (n, t), dt in zip(tensors, dtypes):
+        if t.dtype != dt:
+            raise TypeError(f"{name} kernel takes {dt} {n}, got "
+                            f"{t.dtype}")
         if not t.is_contiguous():
-            raise ValueError(f"decode_attend kernel takes a contiguous "
-                             f"{name}")
+            raise ValueError(f"{name} kernel takes a contiguous {n}")
+    q, cache = tensors[0][1], tensors[1][1]
     S, H, Dh = q.shape
-    T = k.shape[1]
+    T = cache.shape[1]
     if min(S, H, Dh, T) < 1 or Dh > MAX_DH:
-        raise ValueError(f"decode_attend kernel takes S, H, T >= 1 and "
+        raise ValueError(f"{name} kernel takes S, H, T >= 1 and "
                          f"1 <= Dh <= {MAX_DH}; got S={S} H={H} T={T} "
                          f"Dh={Dh}")
     if S * H >= 2 ** 31:
-        raise ValueError(f"decode_attend kernel: S*H={S * H} blocks "
-                         f"exceed the grid")
+        raise ValueError(f"{name} kernel: S*H={S * H} blocks exceed the "
+                         f"grid")
 
 
-def _lib():
-    lib = _build.load("decode_attention")
-    fn = lib.ptt_decode_attend_f32
-    if fn.argtypes is None:
-        p = ctypes.c_void_p
-        fn.argtypes = [p, p, p, p, p, ctypes.c_int, ctypes.c_int,
-                       ctypes.c_int, ctypes.c_int, ctypes.c_float, p]
-        fn.restype = ctypes.c_int
-    return fn
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 
 
 def decode_attend(q, k, v, pos, scale=None):
     """q [S,H,Dh], k/v [S,T,H,Dh], pos [S] (attend to t <= pos[s]) ->
     [S,H,Dh]. CPU tensors go to `decode_attend_plain`; CUDA tensors
     (fp32, int32 pos, contiguous) to the CUDA kernel."""
-    global LAUNCHES
-    _check(q, k, v, pos)
-    if q.device.type == "cpu" and k.device.type == "cpu" \
-            and v.device.type == "cpu" and pos.device.type == "cpu":
+    args = (("q", q), ("k", k), ("v", v), ("pos", pos))
+    _check("decode_attend", q, pos, [("k", k), ("v", v)])
+    if _on_cpu("decode_attend", args):
         return decode_attend_plain(q, k, v, pos, scale)
-    if q.device.type != "cuda":
-        raise ValueError(
-            f"decode_attend takes all-CPU or all-CUDA tensors; got q on "
-            f"{q.device}, k on {k.device}, v on {v.device}, pos on "
-            f"{pos.device}")
-    _check_kernel_inputs(q, k, v, pos)
+    f32 = torch.float32
+    _check_kernel_inputs("decode_attend", args,
+                         (f32, f32, f32, torch.int32))
     S, H, Dh = q.shape
     T = k.shape[1]
     scale = float(scale) if scale is not None else Dh ** -0.5
-    fn = _lib()
+    fn = _build.function("decode_attention", "ptt_decode_attend_f32",
+                         [_P] * 5 + [_I] * 4 + [_F, _P])
     out = torch.empty_like(q)
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
-        rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), pos.data_ptr(),
-                out.data_ptr(), S, T, H, Dh, scale, stream)
-    if rc != 0:
-        raise RuntimeError(f"decode_attend kernel launch failed: "
-                           f"cudaError {rc}")
-    LAUNCHES += 1
+    launch("decode_attend", fn, q.device, q.data_ptr(), k.data_ptr(),
+           v.data_ptr(), pos.data_ptr(), out.data_ptr(), S, T, H, Dh, scale)
+    return out
+
+
+def dequant_attend(q, kq, ks, vq, vs, pos, scale=None):
+    """q [S,H,Dh] f32; kq/vq [S,T,H,Dh] int8 codes; ks/vs
+    [S,T,H,Dh/qblock] f32 per-block scales; pos [S] (attend to t <=
+    pos[s]) -> [S,H,Dh] f32. qblock = Dh // ks.shape[-1]. CPU tensors go
+    to `dequant_attend_plain`; CUDA tensors (contiguous, int32 pos) to
+    the CUDA kernel, which dequantizes in registers."""
+    args = (("q", q), ("kq", kq), ("ks", ks), ("vq", vq), ("vs", vs),
+            ("pos", pos))
+    _check("dequant_attend", q, pos, [("kq", kq), ("vq", vq)],
+           [("ks", ks), ("vs", vs)])
+    if _on_cpu("dequant_attend", args):
+        return dequant_attend_plain(q, kq, ks, vq, vs, pos, scale)
+    f32, i8 = torch.float32, torch.int8
+    _check_kernel_inputs("dequant_attend", args,
+                         (f32, i8, f32, i8, f32, torch.int32))
+    S, H, Dh = q.shape
+    T = kq.shape[1]
+    scale = float(scale) if scale is not None else Dh ** -0.5
+    fn = _build.function("decode_attention", "ptt_dequant_attend_int8",
+                         [_P] * 7 + [_I] * 5 + [_F, _P])
+    out = torch.empty_like(q)
+    launch("dequant_attend", fn, q.device, q.data_ptr(), kq.data_ptr(),
+           ks.data_ptr(), vq.data_ptr(), vs.data_ptr(), pos.data_ptr(),
+           out.data_ptr(), S, T, H, Dh, ks.shape[-1], scale)
     return out

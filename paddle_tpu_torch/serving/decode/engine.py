@@ -10,8 +10,8 @@ scheduler needs:
   bucket set (powers of two up to `num_slots` by default, as
   `inference.default_buckets`), so prefill sees a bounded set of shapes;
 - **warmup**: every prefill bucket and the step run once on zero feeds
-  before traffic, which builds the CUDA kernel and initialises the
-  libraries, so live requests never wait on them.
+  before traffic, which builds the step's CUDA kernels and initialises
+  the libraries, so live requests never wait on them.
 
 The scheduler talks to this class through a narrow, duck-typeable
 surface (``num_slots / max_new_tokens / src_max_len / init_state /
@@ -35,8 +35,10 @@ class DecodeEngineConfig:
     prefill_buckets: admitted-row buckets (default: powers of two up
         to num_slots).
     topk / temperature: sampling (0 = greedy argmax).
-    kv_quant / kv_block: the int8 cache, which is the next slice of the
-        port (None keeps fp32; "int8" raises NotImplementedError).
+    kv_quant / kv_block: None keeps the fp32 self-attention cache;
+        "int8" stores int8 codes with fp32 scales over kv_block-wide
+        blocks of the head dim (default: the whole head), which shrinks
+        `kv_cache_bytes` (see IncrementalDecoder).
     """
 
     def __init__(self, num_slots=8, max_len=None, src_max_len=None,

@@ -21,7 +21,8 @@ names = [m.name for m in pkgutil.walk_packages(
 for n in names:
     importlib.import_module(n)
 import chip_smoke
-assert len(names) >= 15, names
+assert len(names) >= 16, names
+assert 'paddle_tpu_torch.ops.kern.quant' in names, names
 bad = [m for m in sys.modules
        if m == 'jax' or m.startswith('jax.') or m == 'jaxlib'
        or m.startswith('jaxlib.') or m == 'paddle_tpu'

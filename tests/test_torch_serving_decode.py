@@ -130,6 +130,60 @@ def test_continuous_batching_token_identical_to_one_at_a_time_jax():
     sched.pool.check()
 
 
+@pytest.mark.parametrize("kv_block", [None, 4])
+def test_int8_continuous_batching_token_identical_to_one_at_a_time(kv_block):
+    """The int8 engine through the scheduler: slots are independent
+    rows, so staggered continuous batching gives exactly the tokens of
+    the same engine serving each request alone."""
+    maxlen = 12
+    params = seeded_params(tiny_cfg(ttfm), seed=9)
+    conf = tdecode.DecodeEngineConfig(num_slots=3, max_len=maxlen,
+                                      prefill_buckets=(1, 2, 4),
+                                      kv_quant="int8", kv_block=kv_block)
+    rng = np.random.RandomState(6)
+    reqs = []
+    for _ in range(6):
+        n = int(rng.randint(3, maxlen + 1))
+        reqs.append((rng.randint(2, 60, (n,)).astype(np.int64), n,
+                     int(rng.randint(3, maxlen))))
+    engine = tdecode.DecodeEngine(tiny_cfg(ttfm), params, conf,
+                                  device="cpu")
+    fp32 = tdecode.DecodeEngine(tiny_cfg(ttfm), params,
+                                tdecode.DecodeEngineConfig(
+                                    num_slots=3, max_len=maxlen),
+                                device="cpu")
+    assert engine.kv_cache_bytes == engine.decoder.kv_cache_bytes() \
+        < fp32.kv_cache_bytes
+    sched = tdecode.ContinuousScheduler(engine, warmup=False)
+    alone = []
+    for src, n, max_new in reqs:
+        f = sched.submit(src, src_len=n, max_new_tokens=max_new)
+        while not f.done():
+            sched.run_iteration()
+        alone.append(np.asarray(f.result(timeout=0).tokens, np.int64))
+    assert len({a.tobytes() for a in alone}) > 1
+
+    sched = tdecode.ContinuousScheduler(engine, warmup=False)
+    arrivals = {0: [0, 1], 1: [2], 3: [3, 4], 5: [5]}
+    futures = {}
+    it = 0
+    while len(futures) < len(reqs) \
+            or not all(f.done() for f in futures.values()):
+        for i in arrivals.get(it, ()):
+            src, n, max_new = reqs[i]
+            futures[i] = sched.submit(src, src_len=n,
+                                      max_new_tokens=max_new)
+        sched.run_iteration()
+        it += 1
+        assert it < 500, "continuous decode did not converge"
+    for i, f in futures.items():
+        np.testing.assert_array_equal(
+            np.asarray(f.result(timeout=0).tokens, np.int64), alone[i],
+            err_msg=str(i))
+    assert sched.pool.free_count() == engine.num_slots
+    sched.pool.check()
+
+
 # ----------------------------------------- admission-control parity
 def _deadline_and_queue_full(mod):
     sched = mod.ContinuousScheduler(
@@ -262,9 +316,11 @@ def test_supervised_loop_recovers_from_a_crash_without_leaking_slots():
         engine, config=tdecode.DecodeConfig(idle_wait_s=0.01),
         warmup=False)
     try:
-        sched.start()
+        # both queued before the loop starts, so both hold a slot when
+        # step 2 fails, however the threads are scheduled
         doomed = [sched.submit(**_req(max_new_tokens=5))
                   for _ in range(2)]
+        sched.start()
         for f in doomed:
             with pytest.raises(RuntimeError, match="injected"):
                 f.result(timeout=10)

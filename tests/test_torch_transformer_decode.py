@@ -2,7 +2,12 @@
 against the JAX `IncrementalDecoder` on the CPU, from the same numpy
 parameters: prefill caches and step logits within a stated fp32
 tolerance, greedy tokens identical, `kv_cache_bytes` equal, and the
-fused checkpoint layout loading through `params_from_numpy`."""
+fused checkpoint layout loading through `params_from_numpy`. With the
+int8 cache (`kv_quant="int8"`), teacher-forced on the JAX decoder's
+tokens: cache codes at most one step apart in a bounded share of
+elements, scales and logits within stated tolerances, and a token
+allowed to differ only where the JAX logits' top-two margin is below
+the logit tolerance; state schema and `kv_cache_bytes` equal."""
 import numpy as np
 import pytest
 import torch
@@ -13,6 +18,19 @@ from paddle_tpu_torch.models import transformer as ttfm
 # fp32 on both sides; XLA and PyTorch sum matmuls in different orders,
 # and the difference grows through the layer stack to ~1e-5 here
 RTOL = ATOL = 1e-4
+
+# int8 cache across the two packages. K/V differ by ~1e-7 relative
+# (summation order), and the JAX step, under jit, computes each scale
+# as absmax * fl(1/127) where the port divides by 127 (1 ulp apart in
+# some blocks), so scales agree to a few ulps and an element that lands
+# near a .5 boundary of x / scale gets a code one step apart. Such a
+# flip moves one K or V element by one quantization step (1/127 of its
+# block's absmax), which moves logits of magnitude ~10 here by ~1e-3
+# at most (10 steps of these decoders put 2 of 4608 codes one step
+# apart and the logits 2e-4 apart).
+INT8_CODE_SHARE = 0.01       # share of codes allowed one step apart
+INT8_SCALE_RTOL = 1e-5
+INT8_LOGIT_ATOL = 5e-3
 
 
 @pytest.fixture(autouse=True)
@@ -135,11 +153,106 @@ def test_fused_checkpoint_layout_gives_the_same_tokens():
     np.testing.assert_array_equal(np.stack(ttok), np.stack(jtok))
 
 
-def test_int8_cache_is_the_next_slice():
+@pytest.mark.parametrize("kv_block", [None, 4])
+def test_int8_decoder_matches_jax_teacher_forced(kv_block, record_property):
+    """Both decoders take the JAX decoder's greedy tokens as their next
+    inputs, so one flipped token cannot make the streams diverge."""
+    S, T = 3, 12
+    params = seeded_params(tiny_cfg(jtfm), seed=7)
+    src, lens = _sources(S, T, seed=5)
+    kw = dict(num_slots=S, max_len=T, return_logits=True,
+              kv_quant="int8", kv_block=kv_block)
+    jdec = jtfm.IncrementalDecoder(tiny_cfg(jtfm), params, **kw)
+    tdec = ttfm.IncrementalDecoder(tiny_cfg(ttfm), params, device="cpu",
+                                   **kw)
+    jst = jdec.write_slots(jdec.init_state(), jdec.prefill(src, lens),
+                           list(range(S)))
+    tst = tdec.write_slots(tdec.init_state(), tdec.prefill(src, lens),
+                           list(range(S)))
+    ids = np.zeros(S, np.int64)
+    pos = np.array([0, 2, 5])             # slots at their own depths
+    flips, close_calls, worst = 0, 0, 0.0
+    for t in range(T - 5):
+        jnext = np.asarray(jdec.step(jst, ids, pos), np.int64)
+        tnext = np.asarray(tdec.step(tst, ids, pos), np.int64)
+        jl, tl = jdec.last_logits, tdec.last_logits
+        np.testing.assert_allclose(tl, jl, rtol=0, atol=INT8_LOGIT_ATOL,
+                                   err_msg=f"step {t} logits")
+        worst = max(worst, float(np.abs(tl - jl).max()))
+        top2 = np.sort(jl, axis=-1)[:, -2:]
+        margin = top2[:, 1] - top2[:, 0]
+        close_calls += int((margin < INT8_LOGIT_ATOL).sum())
+        differ = tnext != jnext
+        assert np.all(margin[differ] < INT8_LOGIT_ATOL), \
+            (f"step {t}: token differs at a top-two margin of "
+             f"{margin[differ]}")
+        flips += int(differ.sum())
+        ids, pos = jnext, pos + 1
+    codes_differ = 0
+    for name in ("kc_q", "vc_q"):
+        a = np.asarray(jst[name]).astype(np.int32)
+        b = tst[name].numpy().astype(np.int32)
+        assert b.dtype == a.dtype and np.abs(a - b).max() <= 1, name
+        codes_differ += int((a != b).sum())
+    n_codes = 2 * np.asarray(jst["kc_q"]).size
+    assert codes_differ <= INT8_CODE_SHARE * n_codes, \
+        f"{codes_differ} of {n_codes} codes differ"
+    for name in ("kc_s", "vc_s"):
+        np.testing.assert_allclose(tst[name].numpy(), np.asarray(jst[name]),
+                                   rtol=INT8_SCALE_RTOL, atol=0,
+                                   err_msg=name)
+    record_property("token_flips", flips)
+    record_property("codes_one_step_apart", codes_differ)
+    print(f"int8 kv_block={kv_block}: {flips} token flips "
+          f"({close_calls} steps under the margin), {codes_differ} of "
+          f"{n_codes} codes one step apart, max logit diff {worst:.2e}")
+
+
+@pytest.mark.parametrize("num_slots,max_len,src_max_len,kv_block",
+                         [(3, 12, None, None), (5, 16, 9, 4),
+                          (2, 8, 12, 2)])
+def test_int8_state_schema_and_kv_cache_bytes_equal(num_slots, max_len,
+                                                    src_max_len, kv_block):
+    params = seeded_params(tiny_cfg(jtfm), seed=1)
+    kw = dict(max_len=max_len, src_max_len=src_max_len, kv_quant="int8",
+              kv_block=kv_block)
+    j = jtfm.IncrementalDecoder(tiny_cfg(jtfm), params, num_slots, **kw)
+    t = ttfm.IncrementalDecoder(tiny_cfg(ttfm), params, num_slots,
+                                device="cpu", **kw)
+    assert t.kv_cache_bytes() == j.kv_cache_bytes()
+    jstate, tstate = j.init_state(), t.init_state()
+    assert {k: (tuple(v.shape), str(np.asarray(v).dtype))
+            for k, v in jstate.items()} \
+        == {k: (tuple(v.shape), str(v.numpy().dtype))
+            for k, v in tstate.items()}
+    assert sum(v.numel() * v.element_size() for v in tstate.values()) \
+        == t.kv_cache_bytes()
+    fp32 = ttfm.IncrementalDecoder(tiny_cfg(ttfm), params, num_slots,
+                                   max_len=max_len,
+                                   src_max_len=src_max_len, device="cpu")
+    assert t.kv_cache_bytes() < fp32.kv_cache_bytes()
+
+
+@pytest.mark.parametrize("kw,match", [
+    (dict(kv_quant="int4"), "kv_quant"),
+    (dict(kv_quant="int8", kv_block=3), "must divide the head dim"),
+    (dict(kv_quant="int8", kv_block=-8), "must divide the head dim"),
+])
+def test_int8_knobs_are_validated_as_in_jax(kw, match):
     params = seeded_params(tiny_cfg(ttfm), seed=2)
-    with pytest.raises(NotImplementedError, match="next slice"):
-        ttfm.IncrementalDecoder(tiny_cfg(ttfm), params, 2,
-                                kv_quant="int8", device="cpu")
+    with pytest.raises(ValueError, match=match):
+        jtfm.IncrementalDecoder(tiny_cfg(jtfm), params, 2, **kw)
+    with pytest.raises(ValueError, match=match):
+        ttfm.IncrementalDecoder(tiny_cfg(ttfm), params, 2, device="cpu",
+                                **kw)
+
+
+def test_int8_kv_block_defaults_to_the_head_dim():
+    params = seeded_params(tiny_cfg(ttfm), seed=2)
+    dec = ttfm.IncrementalDecoder(tiny_cfg(ttfm), params, 2,
+                                  kv_quant="int8", device="cpu")
+    assert dec.kv_block == 32 // 4
+    assert dec.init_state()["kc_s"].shape[-1] == 1
 
 
 def test_topk_sampling_is_seeded_and_stays_in_the_top_k():
