@@ -6,16 +6,23 @@ Run from the root of a checkout, with no arguments:
 
     python3 chip_smoke.py
 
-It builds every kernel of the serving path from `paddle_tpu_torch/csrc/`
-(one `nvcc` per source, all at once), holds each kernel against its
-plain PyTorch version on the card, and serves Transformer-base greedy
-decode through `ContinuousScheduler` -> `DecodeEngine` ->
-`IncrementalDecoder` with random weights made from a seed, twice: with
-the fp32 KV cache (kernel `decode_attend`) and with the int8 cache
-(kernels `quantize_int8_blockwise` and `dequant_attend`). For each run
-it checks that every decode step went through its kernels. It compares
-the card's logits and tokens with the port's CPU run, the int8 cache
-with the fp32 cache on the card, and times each kernel beside its
+It builds every kernel of the port from `paddle_tpu_torch/csrc/` (one
+`nvcc` per source, all at once) and holds each kernel against its plain
+PyTorch version on the card. Then it drives three paths with random
+weights made from a seed:
+
+- Transformer-base greedy decode through `ContinuousScheduler` ->
+  `DecodeEngine` -> `IncrementalDecoder`, with the fp32 KV cache
+  (kernel `decode_attend`) and with the int8 cache (kernels
+  `quantize_int8_blockwise` and `dequant_attend`);
+- Transformer-base inference through the Fluid Program and Executor:
+  `build_infer_program` built with the port's layers, `run_startup`,
+  then `greedy_decode` through `Executor.run` (kernels `layer_norm` and
+  `flash_attention`).
+
+For each path it checks that every step went through its kernels. It
+compares the card's logits and tokens with the port's CPU run, the int8
+cache with the fp32 cache on the card, and times each kernel beside its
 bound, its plain version and, where one exists, a PyTorch library call.
 
 It imports nothing of JAX or of `paddle_tpu`. Where CUDA is not
@@ -56,6 +63,11 @@ INT8_LOGIT_ATOL = 2e-2
 # package's own bounds (tests/test_serving_farm.py, greedy)
 INT8_VS_FP32_TOKEN_SHARE = 0.02
 INT8_VS_FP32_LOGIT = 0.5
+# the Program path, card against CPU, fp32: 6 encoder and 6 decoder
+# layers over 128 positions, cuBLAS and the CPU BLAS summing in
+# different orders; logits are O(10). Tokens may differ only where the
+# CPU logits' top-two margin is below it.
+PROGRAM_LOGIT_ATOL = 2e-3
 
 
 class SmokeFailure(RuntimeError):
@@ -149,6 +161,134 @@ def phase_device_and_build(torch, _build):
     return card
 
 
+def phase_layer_norm_vs_plain(torch, ln, dev):
+    """The LayerNorm kernel against its plain version on the card: at
+    the Program path's shape ([16, 128, 512]: 2048 rows of 512), at C
+    64, 2048 and 8192, on 7 rows, with a batch dim of 1, in fp32 and
+    bf16. mean and var (f32) and fp32 y within KERNEL_ATOL. A bf16 y is
+    held to one bf16 step, not KERNEL_ATOL: the kernel's and the plain
+    version's f32 values may straddle a rounding boundary. The f32
+    arithmetic of the bf16 case is held to KERNEL_ATOL through the fp32
+    kernel run on the same, bf16-rounded, input (`x.float()`), against
+    the plain version on that input and against the bf16 run's mean and
+    var; the bf16 y is within one step of that run's y too."""
+    rng = np.random.default_rng(SEED + 12)
+    worst = 0.0
+    for shape in ((16, 128, 512), (300, 64), (300, 2048), (40, 8192),
+                  (7, 512), (1, 128, 512)):
+        C = shape[-1]
+        x32 = torch.from_numpy((rng.standard_normal(shape, dtype=np.float32)
+                                * 3.0 + 0.5).astype(np.float32)).to(dev)
+        g = torch.from_numpy((1 + 0.2 * rng.standard_normal(
+            C, dtype=np.float32)).astype(np.float32)).to(dev)
+        b = torch.from_numpy((0.1 * rng.standard_normal(C, dtype=np.float32)
+                              ).astype(np.float32)).to(dev)
+        for dt in (torch.float32, torch.bfloat16):
+            x = x32.to(dt)
+            y, mean, var = ln.layer_norm(x, g, b, 1e-5)
+            torch.cuda.synchronize()
+            py, pm, pv = ln.layer_norm_plain(x, g, b, 1e-5)
+            torch.cuda.synchronize()
+            check(y.dtype == dt and tuple(y.shape) == shape
+                  and tuple(mean.shape) == shape[:-1]
+                  and tuple(var.shape) == shape[:-1], "layer_norm shapes")
+            e_stats = max(float((mean - pm).abs().max()),
+                          float((var - pv).abs().max()))
+            e_y = float((y.float() - py.float()).abs().max())
+            if dt == torch.float32:
+                err = max(e_stats, e_y)
+                note = ""
+            else:
+                # one bf16 step at |v| is at most |v| * 2**-7
+                step = (py.float().abs() * 2.0 ** -7).clamp_min(2.0 ** -133)
+                apart = int(((y.float() - py.float()).abs() > 0).sum())
+                check(bool(((y.float() - py.float()).abs()
+                            <= step + KERNEL_ATOL).all()),
+                      "bf16 layer_norm more than one bf16 step apart")
+                xr = x.float()      # exact: the bf16 run's own input
+                ky, km, kv = ln.layer_norm(xr, g, b, 1e-5)
+                torch.cuda.synchronize()
+                ry, rm, rv = ln.layer_norm_plain(xr, g, b, 1e-5)
+                e_f32 = max(float((ky - ry).abs().max()),
+                            float((km - rm).abs().max()),
+                            float((kv - rv).abs().max()),
+                            float((mean - km).abs().max()),
+                            float((var - kv).abs().max()))
+                check(bool(((y.float() - ky).abs()
+                            <= (ky.abs() * 2.0 ** -7).clamp_min(2.0 ** -133)
+                            + KERNEL_ATOL).all()),
+                      "bf16 layer_norm more than one bf16 step from the "
+                      "fp32 kernel on its input")
+                err = max(e_stats, e_f32)
+                note = (f" bf16 y: {apart} of {y.numel()} one rounding step "
+                        f"apart, max |diff| {e_y:.3e}; f32 arithmetic on "
+                        f"the bf16 input {e_f32:.3e}")
+            log(f"[kernel] layer_norm x={list(shape)} {str(dt)[6:]}: max "
+                f"|err| mean/var={e_stats:.3e} y={e_y:.3e}{note} (bound "
+                f"{KERNEL_ATOL:.0e})")
+            check(err <= KERNEL_ATOL, f"layer_norm disagrees: {err}")
+            worst = max(worst, err)
+    return worst
+
+
+def phase_flash_vs_plain(torch, fa, dev):
+    """The flash kernel against its plain version on the card, out and
+    lse within KERNEL_ATOL: at the Program path's shape (B 16, H 8,
+    T = S = 128, D 64, layout bthd) with and without the pad bias,
+    causal and not; cross attention with T != S; lengths 37 and 50 that
+    are not tile multiples; D 32 and 128; the bhtd layout; the other
+    bias shapes; and a negative causal_offset, compared on the rows that
+    keep at least one key."""
+    rng = np.random.default_rng(SEED + 13)
+    worst = 0.0
+    cases = [(16, 8, 128, 128, 64, "bthd", bias, causal, 0)
+             for bias in (None, "b11s") for causal in (False, True)]
+    cases += [(16, 8, 128, 96, 64, "bthd", "b11s", False, 0),
+              (4, 8, 50, 37, 64, "bthd", "bs", False, 0),
+              (4, 8, 37, 50, 64, "bthd", "b11s", True, 0),
+              (4, 8, 128, 128, 32, "bthd", "b11s", True, 0),
+              (4, 8, 128, 128, 128, "bhtd", "1s", False, 0),
+              (4, 8, 96, 128, 64, "bhtd", "111s", True, 0),
+              (4, 8, 128, 128, 64, "bthd", "b11s", True, -1),
+              (2, 4, 50, 37, 64, "bhtd", None, True, -5)]
+    for B, H, T, S, D, layout, bias_kind, causal, off in cases:
+        def mk(n):
+            shp = (B, H, n, D) if layout == "bhtd" else (B, n, H, D)
+            return torch.from_numpy(rng.standard_normal(
+                shp, dtype=np.float32)).to(dev)
+        q, k, v = mk(T), mk(S), mk(S)
+        bias = None
+        if bias_kind is not None:
+            lens = rng.integers(1, S + 1, B)
+            lens[0] = S
+            keep = (np.arange(S)[None, :] < lens[:, None]).astype(np.float32)
+            pad = keep * 1e9 - 1e9
+            bias = {"b11s": pad[:, None, None, :], "bs": pad,
+                    "1s": pad[:1], "111s": pad[:1, None, None, :]}[bias_kind]
+            bias = torch.from_numpy(np.ascontiguousarray(bias)).to(dev)
+        out, lse = fa.flash_attention(q, k, v, bias, causal, D ** -0.5, off,
+                                      layout)
+        torch.cuda.synchronize()
+        pout, plse = fa.flash_attention_plain(q, k, v, bias, causal,
+                                              D ** -0.5, off, layout)
+        torch.cuda.synchronize()
+        rows = np.arange(T) + (S - T + off if causal else S) >= 0
+        rows_t = torch.from_numpy(rows).to(dev)
+        o, po = (x if layout == "bhtd" else x.transpose(1, 2)
+                 for x in (out, pout))
+        e_out = float((o - po)[:, :, rows_t].abs().max())
+        e_lse = float((lse - plse)[:, :, rows_t].abs().max())
+        check(bool(torch.isfinite(o[:, :, rows_t]).all()), "flash not finite")
+        log(f"[kernel] flash_attention B={B} H={H} T={T} S={S} D={D} "
+            f"{layout} bias={bias_kind} causal={causal} offset={off} "
+            f"rows compared={int(rows.sum())}: max |err| out={e_out:.3e} "
+            f"lse={e_lse:.3e} (bound {KERNEL_ATOL:.0e})")
+        check(max(e_out, e_lse) <= KERNEL_ATOL,
+              f"flash disagrees: out {e_out}, lse {e_lse}")
+        worst = max(worst, e_out, e_lse)
+    return worst
+
+
 def phase_kernel_vs_plain(torch, da, dev):
     """The kernel against its plain version on the card, at the main
     path's shape, a deep pool and two other head widths."""
@@ -181,8 +321,11 @@ def phase_quant_vs_plain(torch, qt, dev):
     """The quantize kernel against its plain version on the card, bit
     for bit: at the main path's shape (one [32, 8, 64] row set in blocks
     of 64), at block sizes 4, 256 and the largest, on blocks that hold
-    an all-zero block and values whose quotient x / scale lies exactly
-    on k + 0.5 (half to even: 0.5 -> 0, 1.5 -> 2, 2.5 -> 2)."""
+    an all-zero block, values whose quotient x / scale lies exactly on
+    k + 0.5 (half to even: 0.5 -> 0, 1.5 -> 2, 2.5 -> 2), and a NaN. The
+    NaN's block must get a NaN scale from both; its codes come from
+    casting NaN to int8, implementation-defined in the reference too,
+    and are not compared. Every other block is bit-identical."""
     rng = np.random.default_rng(SEED + 6)
     halves = np.array([0.5, 1.5, 2.5, -0.5, -1.5, -2.5, 126.5, -125.5],
                       np.float32)
@@ -197,6 +340,7 @@ def phase_quant_vs_plain(torch, qt, dev):
             blk = np.resize(halves, bs) * unit
             blk[-1] = 127.0 * unit
             x[b * bs:(b + 1) * bs] = blk
+        x[4 * bs + bs // 2] = np.nan       # block 4 holds a NaN
         xt = torch.from_numpy(x).to(dev)
         codes, scales = qt.quantize_int8_blockwise(xt, bs)
         torch.cuda.synchronize()
@@ -204,6 +348,14 @@ def phase_quant_vs_plain(torch, qt, dev):
         check(codes.dtype == torch.int8 and scales.dtype == torch.float32
               and tuple(codes.shape) == (n // bs, bs)
               and tuple(scales.shape) == (n // bs, 1), "quantize shapes")
+        nan_k, nan_p = float(scales[4, 0]), float(ps[4, 0])
+        check(np.isnan(nan_k) and np.isnan(nan_p),
+              f"the NaN block's scale must be NaN: kernel {nan_k}, plain "
+              f"{nan_p}")
+        other = torch.ones(n // bs, dtype=torch.bool, device=dev)
+        other[4] = False
+        codes, pc, scales, ps = codes[other], pc[other], scales[other], \
+            ps[other]
         same_c = bool(torch.equal(codes, pc))
         same_s = bool(torch.equal(scales, ps))
         err_c = int((codes.int() - pc.int()).abs().max())
@@ -212,8 +364,9 @@ def phase_quant_vs_plain(torch, qt, dev):
         ties = codes[1, :min(bs, 8)].tolist()
         log(f"[kernel] quantize_int8_blockwise n={n} block_size={bs}: "
             f"codes identical={same_c} (max |diff| {err_c}) scales "
-            f"identical={same_s} (max |diff| {err_s:.3e}); zero "
-            f"block scale={float(scales[0, 0])} tie codes={ties}")
+            f"identical={same_s} (max |diff| {err_s:.3e}) outside the NaN "
+            f"block, whose scales are kernel {nan_k} and plain {nan_p}; "
+            f"zero block scale={float(scales[0, 0])} tie codes={ties}")
         check(same_c and same_s, "quantize kernel is not bit-identical "
               "to its plain version")
         check(float(scales[0, 0]) == 0.0 and not bool(codes[0].any()),
@@ -265,7 +418,7 @@ def phase_serving(torch, kern, tfm, dec_mod, params, cfg, kv_quant=None):
     first half is in flight, with the fp32 or the int8 KV cache. Every
     launch count is set to 0 just before the run and read just after:
     each decode step must launch the cache's kernels once per layer
-    (quantize twice, for K and V) and the other cache's never."""
+    (quantize twice, for K and V) and every other kernel never."""
     engine = dec_mod.DecodeEngine(
         cfg, params, dec_mod.DecodeEngineConfig(num_slots=32, max_len=256,
                                                 kv_quant=kv_quant))
@@ -331,10 +484,10 @@ def phase_serving(torch, kern, tfm, dec_mod, params, cfg, kv_quant=None):
     distinct = len(np.unique(np.concatenate([r.tokens for r in results])))
     streams = len({r.tokens.tobytes() for r in results})
     L, n = cfg.n_layer, len(steps)
-    want = ({"decode_attend": 0, "dequant_attend": L * n,
-             "quantize_int8_blockwise": 2 * L * n} if kv_quant == "int8"
-            else {"decode_attend": L * n, "dequant_attend": 0,
-                  "quantize_int8_blockwise": 0})
+    want = {k: 0 for k in launches}
+    want.update({"dequant_attend": L * n,
+                 "quantize_int8_blockwise": 2 * L * n}
+                if kv_quant == "int8" else {"decode_attend": L * n})
     log(f"[serve] Transformer-base d_model={cfg.d_model} "
         f"d_inner={cfg.d_inner} heads={cfg.n_head} layers={cfg.n_layer} "
         f"vocab={cfg.trg_vocab}; slots=32 max_len=256 "
@@ -710,6 +863,297 @@ def phase_times_dequant(torch, da, steps, cfg, dev):
             "bound_by": bound_by, "library_ms": None}
 
 
+def build_program(tfm, fw, unique_name, cfg, maxlen):
+    """Transformer inference program built with the port's layers, in
+    fresh programs under a fresh name guard: (main, startup, logits)."""
+    main, startup = fw.Program(), fw.Program()
+    with fw.program_guard(main, startup), unique_name.guard():
+        _feeds, logits = tfm.build_infer_program(cfg, maxlen=maxlen)
+    return main, startup, logits
+
+
+def program_sources(cfg, n, T, seed):
+    """n source rows padded to T, lengths from 8 to T."""
+    rng = np.random.default_rng(seed)
+    lens = rng.integers(8, T + 1, n)
+    lens[0] = T
+    src = np.zeros((n, T), np.int64)
+    for r, m in enumerate(lens):
+        src[r, :m] = rng.integers(2, cfg.src_vocab, m)
+    return src, lens.astype(np.int64)
+
+
+def phase_program(torch, kern, tfm, core, params, cfg, dev):
+    """Transformer-base inference through the Fluid Program and the
+    Executor on the card: build_infer_program(maxlen=128) with the
+    port's layers, run_startup (every parameter on the card in its
+    declared shape and dtype), the shared weights loaded with
+    scope_from_numpy, then greedy_decode(fetch_argmax=True) of 16 source
+    sentences, 127 Executor.runs. Every launch count is set to 0 just
+    before the decode and read just after: each run must launch the
+    flash kernel 3 times a layer (18 at base) and the LayerNorm kernel 5
+    times a layer (30), once for each such op of the program, and no
+    other kernel."""
+    T, B = 128, 16
+    main, startup, logits = build_program(tfm, core.framework,
+                                          core.unique_name, cfg, T)
+    exe = core.Executor(core.CUDAPlace(0))
+    check(exe.device.type == "cuda", f"executor on {exe.device}")
+    fresh = core.Scope()
+    t = time.perf_counter()
+    exe.run_startup(startup, scope=fresh)
+    torch.cuda.synchronize()
+    t_start = time.perf_counter() - t
+    n_params = 0
+    for var in main.all_parameters():
+        got = fresh.get(var.name)
+        check(got is not None and got.device.type == "cuda"
+              and tuple(got.shape) == var.shape
+              and core.convert_dtype(got.dtype) == var.dtype,
+              f"startup made {var.name} wrongly: "
+              f"{None if got is None else (got.device, tuple(got.shape), got.dtype)}"
+              f" for {var.shape} {var.dtype}")
+        n_params += got.numel()
+    scope = core.scope_from_numpy(params, dev)
+    src, lens = program_sources(cfg, B, T, SEED + 14)
+    runs, spent = [], [0.0]
+    inner = exe.run
+
+    def run(*a, **kw):
+        t0 = time.perf_counter()
+        out = inner(*a, **kw)       # ends in the fetch's readback
+        spent[0] += time.perf_counter() - t0
+        runs.append(1)
+        return out
+    exe.run = run
+    for name in kern.LAUNCHES:
+        kern.LAUNCHES[name] = 0
+    t0 = time.perf_counter()
+    with core.scope_guard(scope):
+        ids = tfm.greedy_decode(exe, main, logits, src, lens,
+                                fetch_argmax=True)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(kern.LAUNCHES)
+    exe.run = inner
+    n = len(runs)
+    per_run = {"flash_attention": 3 * cfg.n_layer,
+               "layer_norm": 5 * cfg.n_layer}
+    census = {k: sum(op.type == k for op in main.global_block().ops)
+              for k in per_run}
+    check(census == per_run, f"op census {census} != {per_run}")
+    want = {k: 0 for k in launches}
+    want.update((k, c * n) for k, c in per_run.items())
+    gen = ids[:, 1:]
+    tokens = gen.size
+    distinct = len(np.unique(gen))
+    log(f"[program] Transformer-base d_model={cfg.d_model} d_inner="
+        f"{cfg.d_inner} heads={cfg.n_head} layers={cfg.n_layer} vocab="
+        f"{cfg.trg_vocab}, build_infer_program(maxlen={T}): "
+        f"{len(main.global_block().ops)} ops ({len(main.all_parameters())} "
+        f"parameters, {n_params} weights), run_startup on the card "
+        f"{t_start:.3f} s; greedy_decode B={B} source lengths "
+        f"{int(lens.min())}-{int(lens.max())}: runs={n} tokens={tokens} "
+        f"distinct_tokens={distinct} wall_s={wall:.3f} tokens_per_s="
+        f"{tokens / wall:.1f} host_ms_per_run={spent[0] / n * 1e3:.3f} "
+        f"LAUNCHES={launches} (required {want}: {per_run} a run)")
+    check(n == T - 1 and ids.shape == (B, T), f"{n} runs, ids {ids.shape}")
+    check(int(gen.min()) >= 0 and int(gen.max()) < cfg.trg_vocab,
+          "token id range")
+    check(distinct > 1, "every generated token is the same")
+    check(launches == want, f"LAUNCHES {launches} != {want}")
+    return launches, exe, main, logits, scope, src, lens, ids
+
+
+def phase_program_card_vs_cpu(core, main, logits, params, src, lens, ids,
+                              card_exe, card_scope):
+    """One teacher-forced Executor.run of the same program on the card
+    and on the CPU (plain versions) from the same weights, on 4 of the
+    sentences with the card's greedy tokens as targets: logits within
+    PROGRAM_LOGIT_ATOL, and an argmax token may differ only where the
+    CPU logits' top-two margin is below it."""
+    import torch
+    rows = [0, 3, 7, 12]
+    trg_len = np.array([128, 100, 64, 9], np.int64)
+    feed = {"src": src[rows], "src_len": lens[rows], "trg": ids[rows],
+            "trg_len": trg_len}
+    card = card_exe.run(main, feed=feed, fetch_list=[logits],
+                        scope=card_scope, is_test=True)[0]
+    cpu_exe = core.Executor(core.CPUPlace())
+    cpu_scope = core.scope_from_numpy(params, torch.device("cpu"))
+    t = time.perf_counter()
+    cpu = cpu_exe.run(main, feed=feed, fetch_list=[logits],
+                      scope=cpu_scope, is_test=True)[0]
+    t_cpu = time.perf_counter() - t
+    live = np.arange(128)[None, :] < trg_len[:, None]      # [4, 128]
+    diff = float(np.abs(card - cpu)[live].max())
+    top2 = np.sort(cpu, axis=-1)[..., -2:]
+    margin = top2[..., 1] - top2[..., 0]
+    differ = (card.argmax(-1) != cpu.argmax(-1)) & live
+    log(f"[program card-vs-cpu] 4 sentences x 128 positions, teacher-"
+        f"forced, trg_len={trg_len.tolist()}: max |logit diff| over live "
+        f"positions={diff:.3e} (bound {PROGRAM_LOGIT_ATOL:.0e}, max "
+        f"|logit|={float(np.abs(cpu).max()):.2f}); argmax differing="
+        f"{int(differ.sum())} of {int(live.sum())} ({int((margin[live] < PROGRAM_LOGIT_ATOL).sum())}"
+        f" under the margin); CPU run {t_cpu:.2f} s")
+    check(diff <= PROGRAM_LOGIT_ATOL, f"program logits differ by {diff}")
+    check(bool(np.all(margin[differ] < PROGRAM_LOGIT_ATOL)),
+          "a token differs above the top-two margin")
+
+
+def phase_program_profile(torch, exe, main, logits, scope, src, lens,
+                          ids):
+    """Where one Executor.run's time goes (the greedy run's step at
+    t = 64): host wall per run, device busy time per run from
+    torch.profiler, idle share, and the kernels that take it (the
+    port's own: `flash_fwd_kernel` and `layer_norm_fwd_kernel`)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    B = src.shape[0]
+    feed = {"src": src, "src_len": lens, "trg": ids,
+            "trg_len": np.full((B,), 64, np.int64)}
+    fetch = [main._greedy_argmax_var]
+
+    def once():
+        return exe.run(main, feed=feed, fetch_list=fetch, scope=scope,
+                       is_test=True)
+    n = 10
+    for _ in range(3):
+        once()
+    t = time.perf_counter()
+    for _ in range(n):
+        once()
+    wall_ms = (time.perf_counter() - t) / n * 1e3
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            once()
+    by_name = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            by_name[e.name] = by_name.get(e.name, 0.0) \
+                + e.time_range.elapsed_us() / n
+    busy_us = sum(by_name.values())
+    if busy_us == 0:
+        log(f"[profile] program run: host wall {wall_ms:.3f} ms/run; "
+            f"device time not visible to torch.profiler (not measured)")
+        return
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
+    ours = "; ".join(
+        f"{kname} {us:.1f} us/run ({us / busy_us:.3f} of device time)"
+        for kname, us in (
+            (kname, sum(v for k, v in by_name.items() if kname in k))
+            for kname in ("flash_fwd_kernel", "layer_norm_fwd_kernel")))
+    log(f"[profile] program run (B={B}, T=128, argmax fetch): host wall "
+        f"{wall_ms:.3f} ms/run (unprofiled); device busy "
+        f"{busy_us / 1e3:.3f} ms/run -> idle share "
+        f"{max(0.0, 1 - busy_us / 1e3 / wall_ms):.3f}; {ours}; top device "
+        f"ops us/run: " + "; ".join(f"{k[:60]}={v:.1f}" for k, v in top))
+
+
+def phase_times_layer_norm(torch, ln, dev):
+    """LayerNorm kernel, plain and library (F.layer_norm) times at the
+    Program path's shape, x [16, 128, 512] fp32. The timed calls cycle
+    through input copies that together exceed four times the L2
+    cache."""
+    shape, C = (16, 128, 512), 512
+    n = 16 * 128 * 512
+    L, l2 = _l2_copies(torch, dev, n * 4 * 2)
+    gen = torch.Generator(dev).manual_seed(SEED + 15)
+    x = torch.randn((L,) + shape, device=dev, generator=gen)
+    g = 1 + 0.2 * torch.randn(C, device=dev, generator=gen)
+    b = 0.1 * torch.randn(C, device=dev, generator=gen)
+    F = torch.nn.functional
+
+    def kern(i):
+        return ln.layer_norm(x[i % L], g, b, 1e-5)
+
+    def plain(i):
+        return ln.layer_norm_plain(x[i % L], g, b, 1e-5)
+
+    def library(i):
+        return F.layer_norm(x[i % L], (C,), g, b, 1e-5)
+
+    lib_err = float((library(0) - kern(0)[0]).abs().max())
+    k_ms = device_ms(torch, kern, 500)
+    p_ms = device_ms(torch, plain, 60)
+    l_ms = device_ms(torch, library, 500)
+    k2_ms = device_ms(torch, kern, 500)
+    rows = n // C
+    nbytes = 2 * n * 4 + 2 * C * 4 + 2 * rows * 4
+    ops = 8 * n
+    bound_ms, bound_by = _bound(nbytes, ops)
+    log(f"[times] layer_norm x={list(shape)} fp32 ({L} input copies "
+        f"cycled, L2 {l2} B): kernel_ms={k_ms:.6f} (repeat {k2_ms:.6f}) "
+        f"bound_us={bound_ms * 1e3:.3f} ({bound_by}: {nbytes} B, {ops} "
+        f"ops) plain_ms={p_ms:.6f} library_ms(F.layer_norm)={l_ms:.6f} "
+        f"library_vs_kernel_max_abs={lib_err:.3e}")
+    return {"ms": k_ms, "plain_ms": p_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by, "library_ms": l_ms}
+
+
+def phase_times_flash(torch, fa, dev):
+    """Flash kernel, plain and library (scaled_dot_product_attention,
+    the bias as attn_mask) times at the Program path's shape: B 16, H 8,
+    T = S = 128, D 64, layout bthd, with the pad bias; non-causal (the
+    encoder and cross attention, 12 of the 18 launches a run) for the
+    kernels line, and causal (the decoder's self attention) beside it.
+    Every key is live (source lengths 128), which is what the bound
+    counts. The timed calls cycle through input copies that together
+    exceed four times the L2 cache."""
+    B, H, T, S, D = 16, 8, 128, 128, 64
+    per = (2 * B * S * H * D + B * T * H * D) * 4
+    L, l2 = _l2_copies(torch, dev, per)
+    gen = torch.Generator(dev).manual_seed(SEED + 16)
+    q, k, v = (torch.randn((L, B, n, H, D), device=dev, generator=gen)
+               for n in (T, S, S))
+    bias = torch.zeros((B, 1, 1, S), device=dev)
+    scale = D ** -0.5
+    F = torch.nn.functional
+    out = {}
+    for causal in (False, True):
+        def kern(i, c=causal):
+            j = i % L
+            return fa.flash_attention(q[j], k[j], v[j], bias, c, scale, 0,
+                                      "bthd")
+
+        def plain(i, c=causal):
+            j = i % L
+            return fa.flash_attention_plain(q[j], k[j], v[j], bias, c,
+                                            scale, 0, "bthd")
+
+        def library(i, c=causal):
+            j = i % L
+            mask = bias
+            if c:
+                mask = bias + torch.zeros((T, S), device=dev).masked_fill(
+                    ~torch.ones((T, S), dtype=torch.bool,
+                                device=dev).tril(), float("-inf"))
+            return F.scaled_dot_product_attention(
+                q[j].transpose(1, 2), k[j].transpose(1, 2),
+                v[j].transpose(1, 2), attn_mask=mask, scale=scale)
+
+        lib_err = float((library(0).transpose(1, 2) - kern(0)[0]).abs().max())
+        k_ms = device_ms(torch, kern, 300)
+        p_ms = device_ms(torch, plain, 60)
+        l_ms = device_ms(torch, library, 300)
+        k2_ms = device_ms(torch, kern, 300)
+        pairs = T * (T + 1) // 2 if causal else T * S
+        nbytes = (2 * B * S * H * D + 2 * B * T * H * D) * 4 + B * S * 4 \
+            + B * H * T * 4
+        flops = 4 * B * H * pairs * D
+        bound_ms, bound_by = _bound(nbytes, flops)
+        log(f"[times] flash_attention B={B} H={H} T={T} S={S} D={D} bthd "
+            f"pad bias causal={causal} ({L} input copies cycled, L2 {l2} "
+            f"B): kernel_ms={k_ms:.6f} (repeat {k2_ms:.6f}) bound_us="
+            f"{bound_ms * 1e3:.3f} ({bound_by}: {nbytes} B, {flops} flop) "
+            f"plain_ms={p_ms:.6f} library_ms(sdpa)={l_ms:.6f} "
+            f"sdpa_vs_kernel_max_abs={lib_err:.3e}")
+        out[causal] = {"ms": k_ms, "plain_ms": p_ms, "bound_ms": bound_ms,
+                       "bound_by": bound_by, "library_ms": l_ms}
+    return out[False]
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -717,9 +1161,19 @@ def main():
               "on a card", file=sys.stderr)
         return 2
     try:
+        import types
+        from paddle_tpu_torch import unique_name
+        from paddle_tpu_torch.core import framework
+        from paddle_tpu_torch.core.dtypes import convert_dtype
+        from paddle_tpu_torch.core.executor import Executor
+        from paddle_tpu_torch.core.place import CPUPlace, CUDAPlace
+        from paddle_tpu_torch.core.scope import (Scope, scope_from_numpy,
+                                                 scope_guard)
         from paddle_tpu_torch.ops import kern
         from paddle_tpu_torch.ops.kern import _build
         from paddle_tpu_torch.ops.kern import decode_attention as da
+        from paddle_tpu_torch.ops.kern import flash_attention as fa
+        from paddle_tpu_torch.ops.kern import layer_norm as ln
         from paddle_tpu_torch.ops.kern import quant as qt
         from paddle_tpu_torch.models import transformer as tfm
         from paddle_tpu_torch.serving import decode as dec_mod
@@ -727,6 +1181,11 @@ def main():
         print(f"chip_smoke: cannot import the port ({e}); run from the "
               f"root of a checkout", file=sys.stderr)
         return 2
+    core = types.SimpleNamespace(
+        framework=framework, unique_name=unique_name, Executor=Executor,
+        CPUPlace=CPUPlace, CUDAPlace=CUDAPlace, Scope=Scope,
+        scope_from_numpy=scope_from_numpy, scope_guard=scope_guard,
+        convert_dtype=convert_dtype)
     t_start = time.perf_counter()
     try:
         dev = torch.device("cuda", 0)
@@ -736,7 +1195,9 @@ def main():
                "quantize_int8_blockwise": phase_quant_vs_plain(torch, qt,
                                                                dev),
                "dequant_attend": phase_dequant_vs_plain(torch, da, qt,
-                                                        dev)}
+                                                        dev),
+               "layer_norm": phase_layer_norm_vs_plain(torch, ln, dev),
+               "flash_attention": phase_flash_vs_plain(torch, fa, dev)}
         cfg = tfm.TransformerConfig.base()
         params = base_params(tfm, cfg, SEED)
         # each path's counts are read just after its own run
@@ -745,30 +1206,43 @@ def main():
         launches = {"decode_attend": runs[None][0]["decode_attend"]}
         launches.update((k, runs["int8"][0][k]) for k in
                         ("dequant_attend", "quantize_int8_blockwise"))
+        prog = phase_program(torch, kern, tfm, core, params, cfg, dev)
+        launches.update((k, prog[0][k]) for k in ("layer_norm",
+                                                  "flash_attention"))
+        _l, p_exe, p_main, p_logits, p_scope, p_src, p_lens, p_ids = prog
         phase_card_vs_cpu(tfm, params, cfg)
         phase_int8_card_vs_cpu(tfm, params, cfg)
         phase_int8_vs_fp32(tfm, params, cfg)
+        phase_program_card_vs_cpu(core, p_main, p_logits, params, p_src,
+                                  p_lens, p_ids, p_exe, p_scope)
         times = {"decode_attend": phase_times(torch, da, runs[None][1],
                                               cfg, dev),
                  "quantize_int8_blockwise": phase_times_quant(torch, qt,
                                                               cfg, dev),
                  "dequant_attend": phase_times_dequant(
-                     torch, da, runs["int8"][1], cfg, dev)}
+                     torch, da, runs["int8"][1], cfg, dev),
+                 "layer_norm": phase_times_layer_norm(torch, ln, dev),
+                 "flash_attention": phase_times_flash(torch, fa, dev)}
         for _launches, steps, engine in runs.values():
             phase_step_profile(torch, engine, median_step(steps, 256), cfg)
+        phase_program_profile(torch, p_exe, p_main, p_logits, p_scope,
+                              p_src, p_lens, p_ids)
     except Exception:           # noqa: BLE001 — any failed phase
         traceback.print_exc()
         print("chip_smoke: FAILED", file=sys.stderr)
         return 1
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
     where = {"decode_attend": ("decode_attention.cu",
-                               "decode_attention.py:108"),
+                               "kern/decode_attention.py:108"),
              "dequant_attend": ("decode_attention.cu",
-                                "decode_attention.py:123"),
-             "quantize_int8_blockwise": ("quant.cu", "quant.py:79")}
+                                "kern/decode_attention.py:123"),
+             "quantize_int8_blockwise": ("quant.cu", "kern/quant.py:79"),
+             "layer_norm": ("layer_norm.cu", "pallas/layer_norm.py:67"),
+             "flash_attention": ("flash_attention.cu",
+                                 "pallas/flash_attention.py:234")}
     print(json.dumps({"kernels": [dict(
         name=name, route="cuda", source=f"paddle_tpu_torch/csrc/{src}",
-        replaces=f"paddle_tpu/ops/kern/{tpu}", launches=launches[name],
+        replaces=f"paddle_tpu/ops/{tpu}", launches=launches[name],
         max_abs_err=err[name], **times[name])
         for name, (src, tpu) in where.items()]}), flush=True)
     print(json.dumps({"ok": True, "device": {

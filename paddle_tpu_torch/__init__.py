@@ -13,7 +13,18 @@ continuous-batching scheduler, with an fp32 or an int8 KV cache:
          ops.kern.quant.quantize_int8_blockwise and
          ops.kern.decode_attention.dequant_attend (CUDA, sm_90a)
 
-Entry points run on the card unless the caller passes ``device="cpu"``;
+and runs Fluid programs built with its own front-end (`core.framework`,
+`layers`, `layer_helper`, `initializer`) through its Executor, as far
+as Transformer inference needs:
+
+    models.transformer.build_infer_program / greedy_decode
+      -> core.executor.Executor.run -> core.trace (op by op, eagerly)
+      -> ops.registry op kernels (ops.kernels_math, kernels_tensor,
+         kernels_nn), of which layer_norm and flash_attention launch
+         ops.kern.layer_norm and ops.kern.flash_attention (CUDA, sm_90a)
+
+Entry points run on the card unless the caller passes ``device="cpu"``
+(an Executor: ``CPUPlace()``);
 without CUDA and without an explicit CPU device they raise.
 """
 __version__ = "0.1.0"

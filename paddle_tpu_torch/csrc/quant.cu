@@ -15,8 +15,11 @@
 // round-to-nearest divisions (__fdiv_rn, so no build flag can turn them
 // into a reciprocal multiply, which moves codes at rounding boundaries);
 // rintf rounds half to even as jnp.round and torch.round do (roundf
-// would round half away from zero). Inputs are taken to be finite: with
-// a NaN in a block, fmaxf drops it where the reference's max keeps it.
+// would round half away from zero). A NaN in a block propagates as in
+// the reference's max: the absmax, and so the block's scale, is NaN
+// (fmaxf would drop it). The codes of such a block come from casting a
+// NaN quotient to int8, which is implementation-defined in the
+// reference too; here they are -127.
 //
 // Bound: memory, and launch at the decode path's sizes. A call reads
 // 4 bytes and writes 1 byte per element plus 4 bytes per block, with a
@@ -37,6 +40,11 @@ namespace {
 constexpr int kWarps = 8;
 constexpr int kMaxBlock = 1024;
 
+// max that keeps a NaN from either side, as jnp.max and torch.amax do
+__device__ __forceinline__ float max_nan(float m, float a) {
+  return (a > m || a != a) ? a : m;
+}
+
 template <int NCH>
 __global__ void __launch_bounds__(kWarps * 32)
 quantize_kernel(const float* __restrict__ x, int8_t* __restrict__ codes,
@@ -52,11 +60,11 @@ quantize_kernel(const float* __restrict__ x, int8_t* __restrict__ codes,
   for (int c = 0; c < NCH; ++c) {
     const int d = lane + 32 * c;
     v[c] = d < bs ? xb[d] : 0.f;
-    m = fmaxf(m, fabsf(v[c]));
+    m = max_nan(m, fabsf(v[c]));
   }
 #pragma unroll
   for (int off = 16; off > 0; off >>= 1)
-    m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, off));
+    m = max_nan(m, __shfl_xor_sync(0xffffffffu, m, off));
   const float s = __fdiv_rn(m, 127.0f);
   const float safe = s == 0.f ? 1.f : s;
   int8_t* cb = codes + (size_t)b * bs;

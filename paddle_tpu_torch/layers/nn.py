@@ -1,0 +1,281 @@
+"""Neural-network layers (counterpart of `paddle_tpu/layers/nn.py`).
+
+Same op types, attrs, parameter names and variable names as the
+reference, so a model built with these layers has the reference's
+program description. The signatures are the reference's less the
+arguments it accepts and ignores: `fc(is_test)`, `dropout(seed)`,
+`reshape(actual_shape, act, inplace)` and `multi_head_attention(cache)`
+are not ported, and the arguments after them are keyword-only, so a
+caller who passes one gets a TypeError, not a silent no-op. Ported: `fc`, `embedding`, `layer_norm`,
+`dropout`, `multi_head_attention` (fused and unfused q/k/v, `use_flash`),
+`add_position_encoding`, `argmax`, `scale`, `elementwise_add`,
+`reshape`, `split` and `unsqueeze`: what Transformer inference and
+`greedy_decode` call. Every other layer of the reference's module is
+left out, among them `fc` over a list of inputs,
+`embedding(is_sparse=True)` / `is_distributed=True` (the sparse slice),
+the losses, convolutions, pooling, RNNs and the reductions.
+"""
+import numpy as np
+
+from ..initializer import ConstantInitializer, NormalInitializer
+from ..layer_helper import LayerHelper
+
+__all__ = ["fc", "embedding", "layer_norm", "dropout",
+           "multi_head_attention", "add_position_encoding", "argmax",
+           "scale", "elementwise_add", "reshape", "split", "unsqueeze"]
+
+
+def _dims(shape):
+    return [int(s) for s in shape]
+
+
+def _simple(helper_name, op_type, x, out_shape=None, attrs=None,
+            extra=None, out_slot="Out", dtype=None, stop_gradient=False):
+    helper = LayerHelper(helper_name)
+    out = helper.create_variable_for_type_inference(
+        dtype or x.dtype, out_shape if out_shape is not None else x.shape,
+        stop_gradient)
+    ins = {"X": [x]}
+    if extra:
+        ins.update(extra)
+    helper.append_op(op_type, ins, {out_slot: [out]}, attrs or {})
+    return out
+
+
+def fc(input, size, num_flatten_dims=1, param_attr=None, bias_attr=None,
+       act=None, *, name=None):
+    """Fully-connected layer: mul + elementwise_add (bias) + activation.
+    The reference's list of inputs (one weight each, summed) is not
+    ported."""
+    if isinstance(input, (list, tuple)):
+        raise NotImplementedError("fc over a list of inputs is not ported")
+    helper = LayerHelper("fc", name=name, act=act, bias_attr=bias_attr)
+    dtype = input.dtype
+    in_dim = int(np.prod(input.shape[num_flatten_dims:]))
+    w = helper.create_parameter(param_attr, shape=[in_dim, size],
+                                dtype=dtype)
+    tmp = helper.create_variable_for_type_inference(
+        dtype, tuple(input.shape[:num_flatten_dims]) + (size,))
+    helper.append_op("mul", {"X": [input], "Y": [w]}, {"Out": [tmp]},
+                     {"x_num_col_dims": num_flatten_dims,
+                      "y_num_col_dims": 1})
+    tmp = helper.append_bias_op(tmp, dim_start=num_flatten_dims,
+                                bias_attr=bias_attr, size=size)
+    return helper.append_activation(tmp, act)
+
+
+def embedding(input, size, is_sparse=False, is_distributed=False,
+              padding_idx=None, param_attr=None, dtype="float32",
+              name=None):
+    """lookup_table over a [vocab, dim] table initialized N(0, 0.02).
+    The sparse and distributed table paths are not ported."""
+    if is_sparse or is_distributed:
+        raise NotImplementedError(
+            "embedding(is_sparse=True / is_distributed=True) belongs to "
+            "the port's sparse slice, which is not ported yet")
+    helper = LayerHelper("embedding", name=name)
+    w = helper.create_parameter(param_attr, shape=_dims(size), dtype=dtype,
+                                default_initializer=NormalInitializer(0.0,
+                                                                      0.02))
+    in_shape = input.shape
+    if in_shape and in_shape[-1] == 1:
+        out_shape = tuple(in_shape[:-1]) + (size[1],)
+    else:
+        out_shape = tuple(in_shape) + (size[1],)
+    out = helper.create_variable_for_type_inference(dtype, out_shape)
+    helper.append_op("lookup_table", {"W": [w], "Ids": [input]},
+                     {"Out": [out]},
+                     {"padding_idx": -1 if padding_idx is None
+                      else padding_idx})
+    return out
+
+
+def layer_norm(input, scale=True, shift=True, begin_norm_axis=1,
+               epsilon=1e-5, param_attr=None, bias_attr=None, act=None,
+               name=None):
+    helper = LayerHelper("layer_norm", name=name, act=act)
+    dtype = input.dtype
+    norm_shape = [int(np.prod(input.shape[begin_norm_axis:]))]
+    ins = {"X": [input]}
+    if scale:
+        s = helper.create_parameter(
+            param_attr, shape=norm_shape, dtype="float32",
+            default_initializer=ConstantInitializer(1.0))
+        ins["Scale"] = [s]
+    if shift:
+        b = helper.create_parameter(bias_attr, shape=norm_shape,
+                                    dtype="float32", is_bias=True)
+        ins["Bias"] = [b]
+    out = helper.create_variable_for_type_inference(dtype, input.shape)
+    mean = helper.create_variable_for_type_inference("float32", (), True)
+    var = helper.create_variable_for_type_inference("float32", (), True)
+    helper.append_op("layer_norm", ins,
+                     {"Y": [out], "Mean": [mean], "Variance": [var]},
+                     {"epsilon": epsilon,
+                      "begin_norm_axis": begin_norm_axis})
+    return helper.append_activation(out, act)
+
+
+def dropout(x, dropout_prob, is_test=False, *, name=None,
+            dropout_implementation="downgrade_in_infer"):
+    helper = LayerHelper("dropout", name=name)
+    out = helper.create_variable_for_type_inference(x.dtype, x.shape)
+    mask = helper.create_variable_for_type_inference(x.dtype, x.shape, True)
+    helper.append_op("dropout", {"X": [x]}, {"Out": [out], "Mask": [mask]},
+                     {"dropout_prob": dropout_prob, "is_test": is_test,
+                      "dropout_implementation": dropout_implementation})
+    return out
+
+
+def reshape(x, shape, *, name=None):
+    shape = list(shape)
+    resolved = []
+    for i, s in enumerate(shape):
+        s = int(s)
+        resolved.append(x.shape[i] if s == 0 else s)
+    return _simple("reshape", "reshape", x, tuple(resolved),
+                   {"shape": shape})
+
+
+def unsqueeze(input, axes, name=None):
+    shape = list(input.shape)
+    for a in sorted(axes):
+        shape.insert(a, 1)
+    return _simple("unsqueeze", "unsqueeze", input, tuple(shape),
+                   {"axes": list(axes)})
+
+
+def argmax(x, axis=-1, keepdims=False, name=None):
+    shape = list(x.shape)
+    ax = axis % len(shape) if shape else 0
+    if keepdims:
+        shape[ax] = 1
+    else:
+        shape.pop(ax)
+    return _simple("arg_max", "arg_max", x, tuple(shape),
+                   {"axis": axis, "keepdims": keepdims}, dtype="int64",
+                   stop_gradient=True)
+
+
+def split(input, num_or_sections, dim=-1, name=None):
+    helper = LayerHelper("split", name=name)
+    axis = dim % len(input.shape)
+    if isinstance(num_or_sections, int):
+        n = num_or_sections
+        sections = None
+        sizes = [input.shape[axis] // n] * n if input.shape[axis] > 0 \
+            else [-1] * n
+    else:
+        sections = list(num_or_sections)
+        sizes = sections
+        n = len(sections)
+    outs = []
+    for s in sizes:
+        shape = list(input.shape)
+        shape[axis] = s
+        outs.append(helper.create_variable_for_type_inference(
+            input.dtype, tuple(shape)))
+    attrs = {"axis": axis}
+    if sections:
+        attrs["sections"] = sections
+    else:
+        attrs["num"] = n
+    helper.append_op("split", {"X": [input]}, {"Out": outs}, attrs)
+    return outs
+
+
+def _elementwise_layer(op, x, y, axis, act, name):
+    helper = LayerHelper(op, name=name, act=act)
+    out_shape = x.shape if len(x.shape) >= len(y.shape) else y.shape
+    out = helper.create_variable_for_type_inference(x.dtype, out_shape)
+    helper.append_op(op, {"X": [x], "Y": [y]}, {"Out": [out]},
+                     {"axis": axis})
+    return helper.append_activation(out, act)
+
+
+def elementwise_add(x, y, axis=-1, act=None, name=None):
+    return _elementwise_layer("elementwise_add", x, y, axis, act, name)
+
+
+def scale(x, scale=1.0, bias=0.0, bias_after_scale=True, act=None,
+          name=None):
+    helper = LayerHelper("scale", name=name, act=act)
+    out = helper.create_variable_for_type_inference(x.dtype, x.shape)
+    helper.append_op("scale", {"X": [x]}, {"Out": [out]},
+                     {"scale": float(scale), "bias": float(bias),
+                      "bias_after_scale": bias_after_scale})
+    return helper.append_activation(out, act)
+
+
+def multi_head_attention(queries, keys, values, attn_bias=None, d_key=64,
+                         d_value=64, d_model=512, n_head=8,
+                         dropout_rate=0.0, causal=False, param_attr=None,
+                         name=None, *, use_flash=True, fused_qkv=None):
+    """Transformer multi-head attention. q/k/v [B, T, d_model]; attn_bias
+    broadcastable to [B, n_head, Tq, Tk]. fused_qkv projects q/k/v (or
+    k/v, for cross attention) with one weight named `<name>_qkv`
+    (`<name>_kv`); it is opt-in, as in the reference. Heads stay in the
+    [B, T, H, Dh] layout: the attention op gets layout "bthd"."""
+    if fused_qkv is None:
+        fused_qkv = False
+    if fused_qkv and param_attr is not None:
+        raise ValueError(
+            "fused_qkv shares one weight across q/k/v and cannot honor "
+            "an explicit param_attr naming; pass fused_qkv=False")
+    if fused_qkv and d_key == d_value and queries is keys \
+            and keys is values:
+        qkv = fc(queries, 3 * d_key * n_head, num_flatten_dims=2,
+                 param_attr=param_attr, bias_attr=False,
+                 name=f"{name}_qkv" if name else None)
+        q, k, v = split(qkv, 3, dim=2)
+    elif fused_qkv and d_key == d_value and keys is values:
+        q = fc(queries, d_key * n_head, num_flatten_dims=2,
+               param_attr=param_attr, bias_attr=False,
+               name=f"{name}_q" if name else None)
+        kv = fc(keys, 2 * d_key * n_head, num_flatten_dims=2,
+                param_attr=param_attr, bias_attr=False,
+                name=f"{name}_kv" if name else None)
+        k, v = split(kv, 2, dim=2)
+    else:
+        if fused_qkv:
+            import warnings
+            warnings.warn(
+                "fused_qkv=True requested but the fused projection needs "
+                "d_key == d_value and q/k/v (or at least k/v) to be the "
+                f"SAME tensor object (got d_key={d_key}, d_value="
+                f"{d_value}); falling back to the UNFUSED per-projection "
+                "weights", stacklevel=2)
+        q = fc(queries, d_key * n_head, num_flatten_dims=2,
+               param_attr=param_attr, bias_attr=False,
+               name=f"{name}_q" if name else None)
+        k = fc(keys, d_key * n_head, num_flatten_dims=2,
+               param_attr=param_attr, bias_attr=False,
+               name=f"{name}_k" if name else None)
+        v = fc(values, d_value * n_head, num_flatten_dims=2,
+               param_attr=param_attr, bias_attr=False,
+               name=f"{name}_v" if name else None)
+    q = reshape(q, [0, 0, n_head, d_key])
+    k = reshape(k, [0, 0, n_head, d_key])
+    v = reshape(v, [0, 0, n_head, d_value])
+    helper = LayerHelper("multi_head_attention", name=name)
+    out = helper.create_variable_for_type_inference(q.dtype, q.shape)
+    wshape = (q.shape[0], n_head, q.shape[1], k.shape[1])
+    wvar = helper.create_variable_for_type_inference(q.dtype, wshape, True)
+    ins = {"Q": [q], "K": [k], "V": [v]}
+    if attn_bias is not None:
+        ins["Mask"] = [attn_bias]
+    helper.append_op(
+        "flash_attention" if use_flash else "scaled_dot_product_attention",
+        ins, {"Out": [out], "Weights": [wvar]},
+        {"causal": causal, "scale": d_key ** -0.5, "layout": "bthd"})
+    out = reshape(out, [0, 0, n_head * d_value])
+    if dropout_rate:
+        out = dropout(out, dropout_rate,
+                      dropout_implementation="upscale_in_train")
+    return fc(out, d_model, num_flatten_dims=2, param_attr=param_attr,
+              bias_attr=False, name=f"{name}_o" if name else None)
+
+
+def add_position_encoding(input, alpha=1.0, beta=1.0, name=None):
+    return _simple("add_position_encoding", "add_position_encoding", input,
+                   input.shape, {"alpha": alpha, "beta": beta})

@@ -1,7 +1,16 @@
-"""Transformer-base NMT incremental (KV-cached) decode on PyTorch
-(counterpart of `paddle_tpu/models/transformer.py`: `TransformerConfig`
-:19, `convert_qkv_checkpoint` :248, `_ln_index` :284, `decode_params`
-:296 and `IncrementalDecoder` :327 with the fp32 and the int8 cache).
+"""Transformer-base NMT on PyTorch (counterpart of
+`paddle_tpu/models/transformer.py`): the Program model built with the
+port's layers (`transformer` :121, `encoder` :81, `decoder` :97,
+`build_infer_program` :171 and `greedy_decode` :189), and the
+incremental (KV-cached) decoder (`TransformerConfig` :19,
+`convert_qkv_checkpoint` :248, `_ln_index` :284, `decode_params` :296
+and `IncrementalDecoder` :327 with the fp32 and the int8 cache).
+
+The Program model runs through `core.executor.Executor`; on the card
+its `layer_norm` and `flash_attention` ops launch the hand-written
+kernels of `ops/kern/layer_norm.py` and `ops/kern/flash_attention.py`.
+`build_program` (the training graph with its loss) is not ported: it
+waits for the training slice.
 
 The JAX decoder jit-compiles one prefill per row bucket and one step
 function and donates the cache buffers to them. The port runs eagerly:
@@ -11,19 +20,33 @@ hand-written CUDA kernel: `ops.kern.decode_attention.decode_attend`
 over the fp32 cache, or `dequant_attend` over the int8 cache, whose
 rows `ops.kern.quant.quantize_int8_blockwise` (a CUDA kernel too)
 quantizes as they are written. On the CPU the same calls take their
-plain versions. Weights arrive as numpy arrays in either checkpoint
-layout through `params_from_numpy`.
+plain versions. Weights arrive as numpy arrays (or tensors) in either
+checkpoint layout through `params_from_numpy`, which keeps a bf16
+checkpoint in bf16: the decoder then follows the reference
+composition's dtypes op by op (JAX's promotions: bf16 where both sides
+are bf16, f32 as soon as one is), and casts q to fp32 where it enters
+the fp32 attention kernels. Two places differ from the reference with
+a bf16 checkpoint, both in layer 0 of the step: the attention kernels
+keep the softmax weights in f32 where the reference's composition
+rounds them to bf16 before the weighted sum, and the int8 cache
+quantizes the new K/V rows from their f32 values where the reference
+quantizes them in bf16 arithmetic.
 """
 import numpy as np
 import torch
 
+from .. import layers
+from ..core import framework as _fw
+from ..core.dtypes import tensor_from_numpy
 from ..device import resolve_device
 from ..ops.kern.decode_attention import decode_attend, dequant_attend
 from ..ops.kern.quant import quantize_int8_blockwise
 from ..ops.kernels_nn import _attn_softmax
 
-__all__ = ["TransformerConfig", "convert_qkv_checkpoint", "param_shapes",
-           "decode_params", "params_from_numpy", "IncrementalDecoder"]
+__all__ = ["TransformerConfig", "transformer", "encoder", "decoder",
+           "build_infer_program", "greedy_decode",
+           "convert_qkv_checkpoint", "param_shapes", "decode_params",
+           "params_from_numpy", "IncrementalDecoder"]
 
 
 class TransformerConfig:
@@ -52,26 +75,178 @@ class TransformerConfig:
                                  n_layer=2, dropout=0.0)
 
 
+def _pad_bias(seq_len, maxlen):
+    """[B] lengths -> additive attention bias [B,1,1,T] (0 keep, -1e9
+    pad)."""
+    mask = layers.sequence_mask(seq_len, maxlen=maxlen, dtype="float32")
+    bias = layers.scale(mask, scale=1e9, bias=-1e9)
+    return layers.unsqueeze(bias, [1, 2])
+
+
+def _embed(ids, vocab, cfg, name):
+    emb = layers.embedding(ids, size=[vocab, cfg.d_model], name=name)
+    emb = layers.scale(emb, scale=float(np.sqrt(cfg.d_model)))
+    emb = layers.add_position_encoding(emb)
+    if cfg.dropout:
+        emb = layers.dropout(emb, cfg.dropout,
+                             dropout_implementation="upscale_in_train")
+    return emb
+
+
+def _ffn(x, cfg, name):
+    h = layers.fc(x, cfg.d_inner, num_flatten_dims=2, act="relu",
+                  name=f"{name}_fc1")
+    if cfg.dropout:
+        h = layers.dropout(h, cfg.dropout,
+                           dropout_implementation="upscale_in_train")
+    return layers.fc(h, cfg.d_model, num_flatten_dims=2, name=f"{name}_fc2")
+
+
+def _res_norm(x, residual, cfg):
+    out = layers.elementwise_add(x, residual)
+    return layers.layer_norm(out, begin_norm_axis=2)
+
+
+def encoder(src_emb, src_bias, cfg):
+    x = src_emb
+    for i in range(cfg.n_layer):
+        attn = layers.multi_head_attention(
+            x, x, x, attn_bias=src_bias,
+            d_key=cfg.d_model // cfg.n_head,
+            d_value=cfg.d_model // cfg.n_head,
+            d_model=cfg.d_model, n_head=cfg.n_head,
+            dropout_rate=cfg.dropout, name=f"enc{i}",
+            fused_qkv=cfg.fused_qkv)
+        x = _res_norm(attn, x, cfg)
+        ff = _ffn(x, cfg, f"enc{i}_ffn")
+        x = _res_norm(ff, x, cfg)
+    return x
+
+
+def decoder(trg_emb, enc_out, trg_bias, src_bias, cfg):
+    x = trg_emb
+    for i in range(cfg.n_layer):
+        self_attn = layers.multi_head_attention(
+            x, x, x, attn_bias=trg_bias, causal=True,
+            d_key=cfg.d_model // cfg.n_head,
+            d_value=cfg.d_model // cfg.n_head,
+            d_model=cfg.d_model, n_head=cfg.n_head,
+            dropout_rate=cfg.dropout, name=f"dec{i}_self",
+            fused_qkv=cfg.fused_qkv)
+        x = _res_norm(self_attn, x, cfg)
+        cross = layers.multi_head_attention(
+            x, enc_out, enc_out, attn_bias=src_bias,
+            d_key=cfg.d_model // cfg.n_head,
+            d_value=cfg.d_model // cfg.n_head,
+            d_model=cfg.d_model, n_head=cfg.n_head,
+            dropout_rate=cfg.dropout, name=f"dec{i}_cross",
+            fused_qkv=cfg.fused_qkv)
+        x = _res_norm(cross, x, cfg)
+        ff = _ffn(x, cfg, f"dec{i}_ffn")
+        x = _res_norm(ff, x, cfg)
+    return x
+
+
+def transformer(src, src_len, trg, trg_len, cfg):
+    """Returns per-position logits [B, T_trg, trg_vocab]."""
+    T_src = int(src.shape[1])
+    T_trg = int(trg.shape[1])
+    src_bias = _pad_bias(src_len, T_src)
+    trg_bias = _pad_bias(trg_len, T_trg)
+    enc_in = _embed(src, cfg.src_vocab, cfg, "src_emb")
+    enc_out = encoder(enc_in, src_bias, cfg)
+    dec_in = _embed(trg, cfg.trg_vocab, cfg, "trg_emb")
+    dec_out = decoder(dec_in, enc_out, trg_bias, src_bias, cfg)
+    return layers.fc(dec_out, cfg.trg_vocab, num_flatten_dims=2,
+                     bias_attr=False, name="proj")
+
+
+def build_infer_program(cfg=None, maxlen=None):
+    """Inference graph (no labels, no loss): (feed names, logits
+    [B,T,V]). Build it under a fresh `unique_name.guard` in a fresh
+    program, so its parameter names are the training program's."""
+    cfg = cfg or TransformerConfig.base()
+    T = maxlen or cfg.max_len
+    src = layers.data("src", shape=[T], dtype="int64")
+    src_len = layers.data("src_len", shape=[], dtype="int64",
+                          append_batch_size=True)
+    trg = layers.data("trg", shape=[T], dtype="int64")
+    trg_len = layers.data("trg_len", shape=[], dtype="int64",
+                          append_batch_size=True)
+    logits = transformer(src, src_len, trg, trg_len, cfg)
+    return ["src", "src_len", "trg", "trg_len"], logits
+
+
+def greedy_decode(exe, infer_program, logits_var, src, src_len, bos=0,
+                  eos=None, fetch_argmax=False):
+    """Autoregressive greedy decode through the inference program: the
+    program runs T-1 times on [B, T] feeds, the argmax at step t-1 fed
+    back as token t. Returns ids [B, T] (position 0 is `bos`); stops
+    early once every row has emitted `eos`. T is src.shape[1] and must
+    equal the maxlen the program was built with. fetch_argmax appends an
+    in-graph arg_max over the vocab (once per program) and fetches the
+    [B, T] ids instead of the [B, T, V] logits."""
+    T = int(src.shape[1])
+    B = src.shape[0]
+    built_T = int(infer_program.global_block().vars["trg"].shape[-1])
+    if built_T != T:
+        raise ValueError(
+            f"src length {T} != infer program's built length {built_T}; "
+            f"rebuild build_infer_program(maxlen={T})")
+    fetch_var = logits_var
+    if fetch_argmax:
+        fetch_var = getattr(infer_program, "_greedy_argmax_var", None)
+        if fetch_var is None:
+            with _fw.program_guard(infer_program):
+                fetch_var = layers.argmax(logits_var, axis=-1)
+            infer_program._greedy_argmax_var = fetch_var
+    ids = np.zeros((B, T), dtype=np.int64)
+    ids[:, 0] = bos
+    done = np.zeros((B,), bool)
+    for t in range(1, T):
+        out = exe.run(infer_program,
+                      feed={"src": src, "src_len": src_len, "trg": ids,
+                            "trg_len": np.full((B,), t, np.int64)},
+                      fetch_list=[fetch_var], is_test=True)
+        if fetch_argmax:
+            nxt = np.asarray(out[0])[:, t - 1]
+        else:
+            nxt = np.asarray(out[0])[:, t - 1, :].argmax(-1)
+        ids[:, t] = nxt
+        if eos is not None:
+            done |= nxt == eos
+            if done.all():
+                break
+    return ids
+
+
+def _tensor(a):
+    """A checkpoint value as a tensor: a tensor stays where it is, a
+    numpy or jax array is copied onto the CPU in its own dtype."""
+    return a if isinstance(a, torch.Tensor) else tensor_from_numpy(a, "cpu")
+
+
 def convert_qkv_checkpoint(arrays, cfg, to_fused):
     """Convert a parameter dict between the UNFUSED (per-projection
     enc{i}_q.w_0 / _k / _v) and FUSED (enc{i}_qkv.w_0,
     dec{i}_cross_kv.w_0) checkpoint layouts, in either direction.
-    Returns a new dict; other entries pass through unchanged. Fusion
-    order is [q | k | v] (or [k | v]) along the output axis."""
+    Returns a new dict in which the converted weights are tensors; other
+    entries pass through unchanged. Fusion order is [q | k | v] (or
+    [k | v]) along the output axis."""
     out = dict(arrays)
 
     def fuse(base, parts, fused_name):
         names = [f"{base}_{p}.w_0" for p in parts]
         if not all(n in out for n in names):
             return
-        ws = [out.pop(n) for n in names]
-        out[fused_name] = np.concatenate(ws, axis=1)
+        out[fused_name] = torch.cat([_tensor(out.pop(n)) for n in names],
+                                    dim=1)
 
     def split(base, parts, fused_name):
         if fused_name not in out:
             return
-        w = out.pop(fused_name)
-        pieces = np.split(w, len(parts), axis=1)
+        pieces = torch.chunk(_tensor(out.pop(fused_name)), len(parts),
+                             dim=1)
         for p, piece in zip(parts, pieces):
             out[f"{base}_{p}.w_0"] = piece
 
@@ -137,12 +312,17 @@ def decode_params(arrays, cfg):
 
 
 def params_from_numpy(arrays, cfg, device=None):
-    """The JAX package's parameters as numpy arrays (either checkpoint
-    layout) -> the port's {name: fp32 torch.Tensor} on `device` (the
-    card unless ``"cpu"`` is passed)."""
+    """The JAX package's parameters as numpy arrays or tensors (either
+    checkpoint layout) -> the port's {name: torch.Tensor} on `device`
+    (the card unless ``"cpu"`` is passed): bf16 parameters stay bf16,
+    as the reference keeps a checkpoint's dtype; every other one is
+    fp32."""
     dev = resolve_device(device)
-    return {n: torch.from_numpy(np.array(a, dtype=np.float32)).to(dev)
-            for n, a in decode_params(arrays, cfg).items()}
+    out = {}
+    for n, a in decode_params(arrays, cfg).items():
+        t = tensor_from_numpy(a, dev)
+        out[n] = t if t.dtype == torch.bfloat16 else t.float()
+    return out
 
 
 def _pe(T, D, device):
@@ -152,6 +332,12 @@ def _pe(T, D, device):
     i = torch.arange(D // 2, dtype=torch.float32, device=device)[None, :]
     angle = pos / torch.pow(10000.0, 2 * i / D)
     return torch.cat([torch.sin(angle), torch.cos(angle)], dim=-1)
+
+
+def _scalar(v, x):
+    """The Python scalar v as a 0-d tensor in x's dtype: JAX's
+    ``x * jnp.asarray(v, x.dtype)`` rounds v to bf16 first."""
+    return torch.tensor(v, dtype=x.dtype, device=x.device)
 
 
 def _ln(x, scale, bias, eps=1e-5):
@@ -164,9 +350,12 @@ def _ln(x, scale, bias, eps=1e-5):
 
 
 def _fc(x, w, b=None, relu=False):
-    """Matmul over the flattened leading dims, + bias, + relu."""
+    """Matmul over the flattened leading dims, + bias, + relu. Mixed bf16
+    and f32 operands promote to f32, as in JAX."""
     lead = x.shape[:-1]
-    out = (x.reshape(-1, x.shape[-1]) @ w).reshape(*lead, w.shape[1])
+    dt = torch.promote_types(x.dtype, w.dtype)
+    out = (x.reshape(-1, x.shape[-1]).to(dt) @ w.to(dt)).reshape(
+        *lead, w.shape[1])
     if b is not None:
         out = out + b.reshape(-1)
     if relu:
@@ -237,7 +426,7 @@ class IncrementalDecoder:
         weight update)."""
         new = decode_params(arrays, self.cfg)
         for k, old in self.params.items():
-            shp = tuple(np.asarray(new[k]).shape)
+            shp = tuple(new[k].shape)
             if shp != tuple(old.shape):
                 raise ValueError(
                     f"rolling update changed the shape of {k}: "
@@ -311,7 +500,8 @@ class IncrementalDecoder:
                 < lens[:, None]).float()
         src_bias = (mask * 1e9 - 1e9)[:, None, None, :]
         scale = Dh ** -0.5
-        x = p["src_emb.w_0"][ids] * float(np.sqrt(D)) + self._pe[:Ts][None]
+        x = p["src_emb.w_0"][ids]
+        x = x * _scalar(np.sqrt(D), x) + self._pe[:Ts][None].to(x.dtype)
         for i in range(L):
             res = x
             q = _fc(x, p[f"enc{i}_q.w_0"]).reshape(rows, Ts, H, Dh)
@@ -346,8 +536,8 @@ class IncrementalDecoder:
         n = len(slots)
         idx = torch.as_tensor(np.asarray(slots, np.int64),
                               device=self.device)
-        state["ck"][:, idx] = ck[:, :n]
-        state["cv"][:, idx] = cv[:, :n]
+        state["ck"][:, idx] = ck[:, :n].to(state["ck"].dtype)
+        state["cv"][:, idx] = cv[:, :n].to(state["cv"].dtype)
         state["src_bias"][idx] = src_bias[:n]
         return state
 
@@ -357,7 +547,7 @@ class IncrementalDecoder:
         place (the reference's int8 `cache_write`)."""
         S, H = self.num_slots, self.cfg.n_head
         Dh = self.cfg.d_model // H
-        q8, sc = quantize_int8_blockwise(new.reshape(-1),
+        q8, sc = quantize_int8_blockwise(new.reshape(-1).float(),
                                          block_size=self.kv_block)
         codes[i, self._rows, pos_l] = q8.reshape(S, H, Dh)
         scales[i, self._rows, pos_l] = sc.reshape(S, H, Dh // self.kv_block)
@@ -391,7 +581,8 @@ class IncrementalDecoder:
         else:
             kc, vc = state["kc"], state["vc"]
         ck, cv, src_bias = state["ck"], state["cv"], state["src_bias"]
-        x = p["trg_emb.w_0"][ids_t] * float(np.sqrt(D)) + self._pe[pos_l]
+        x = p["trg_emb.w_0"][ids_t]
+        x = x * _scalar(np.sqrt(D), x) + self._pe[pos_l].to(x.dtype)
         for i in range(L):
             res = x
             q = _fc(x, p[f"dec{i}_self_q.w_0"]).reshape(S, H, Dh)
@@ -399,15 +590,15 @@ class IncrementalDecoder:
                 for codes, scales, w in ((kq, ks, "k"), (vq, vs, "v")):
                     self._write_int8(codes, scales, i, pos_l, _fc(
                         x, p[f"dec{i}_self_{w}.w_0"]))
-                o = dequant_attend(q.contiguous(), kq[i], ks[i], vq[i],
-                                   vs[i], pos_t, scale).reshape(S, D)
+                o = dequant_attend(q.float().contiguous(), kq[i], ks[i],
+                                   vq[i], vs[i], pos_t, scale).reshape(S, D)
             else:
                 kc[i, self._rows, pos_l] = _fc(
-                    x, p[f"dec{i}_self_k.w_0"]).reshape(S, H, Dh)
+                    x, p[f"dec{i}_self_k.w_0"]).reshape(S, H, Dh).float()
                 vc[i, self._rows, pos_l] = _fc(
-                    x, p[f"dec{i}_self_v.w_0"]).reshape(S, H, Dh)
-                o = decode_attend(q.contiguous(), kc[i], vc[i], pos_t,
-                                  scale).reshape(S, D)
+                    x, p[f"dec{i}_self_v.w_0"]).reshape(S, H, Dh).float()
+                o = decode_attend(q.float().contiguous(), kc[i], vc[i],
+                                  pos_t, scale).reshape(S, D)
             x = self._norm(_fc(o, p[f"dec{i}_self_o.w_0"]) + res, "dec", i,
                            "self")
             res = x

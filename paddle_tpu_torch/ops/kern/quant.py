@@ -12,8 +12,11 @@ the raw one, so an all-zero block stores scale 0 (and codes 0).
 tensors; for a tensor on any other device, or a launch that fails, it
 raises. Codes and scales are bit-identical between the kernel, the
 plain version and the reference: the arithmetic is elementwise, with
-one exact max, IEEE divisions and round half to even. Each launch
-counts in `LAUNCHES["quantize_int8_blockwise"]`.
+one exact max, IEEE divisions and round half to even. A NaN in a block
+makes that block's scale NaN in all three (the max keeps it); its codes
+come from casting NaN to int8, which is implementation-defined in the
+reference too. Each launch counts in
+`LAUNCHES["quantize_int8_blockwise"]`.
 
 Dequantize stays a plain one-liner, as in the reference: on the decode
 path it is fused into the attention kernel (`dequant_attend`).

@@ -1,17 +1,177 @@
-"""Neural-network helpers of the port's serving path (counterpart of
-`paddle_tpu/ops/kernels_nn.py`; only `_attn_softmax`, forward only —
-serving needs no gradient)."""
+"""Neural-network op kernels (counterpart of
+`paddle_tpu/ops/kernels_nn.py`: `layer_norm` :232, `dropout` :298,
+`sequence_mask` :680, `_attn_softmax` :741,
+`scaled_dot_product_attention` :771, `add_position_encoding` :801 and
+`flash_attention` :909; every other op of the module is not ported).
+
+`layer_norm` and `flash_attention` reach the hand-written Hopper kernels
+through `ctx.accel`, as the reference reaches its Pallas kernels: the
+kernel's `try_*` entry runs it (its plain version on the CPU) or
+returns None when the kernel's static shape check rejects the inputs,
+and the op then runs its composition. `layer_norm` falls to the
+composition only where the reference's does: a norm over more than the
+last axis, or no scale or bias. `flash_attention` falls to the
+`scaled_dot_product_attention` composition for a bias that is not a
+per-key bias ([B,S], [B,1,1,S], [1,S] or [1,1,1,S]), such as a full
+[B,H,T,S] one. The TPU's gates (the kernel's minimum sequence length,
+Mosaic's 128-lane rule, at least 8 rows) are not inherited: on the card
+every `layer_norm` and `flash_attention` op of Transformer inference
+launches its kernel. Where the flash kernel ran, the op's `Weights`
+output is an empty tensor, as in the reference.
+
+The `scaled_dot_product_attention` composition masks the causal part
+with -inf where the kernel uses -1e30; both give such a key weight 0,
+and only a fully masked row, whose output both packages leave
+implementation-defined, tells them apart.
+"""
+import numpy as np
 import torch
+
+from ..core.dtypes import to_torch_dtype
+from .registry import kernel
 
 __all__ = ["_attn_softmax"]
 
 
+def _x(ins, slot="X"):
+    return ins[slot][0]
+
+
+def _opt(ins, slot):
+    v = ins.get(slot)
+    return v[0] if v else None
+
+
+@kernel("layer_norm")
+def _layer_norm(ctx, ins, attrs):
+    x = _x(ins)
+    eps = attrs.get("epsilon", 1e-5)
+    begin = attrs.get("begin_norm_axis", 1)
+    scale, bias = _opt(ins, "Scale"), _opt(ins, "Bias")
+    fused = ctx.accel("layer_norm")
+    if fused is not None:
+        got = fused(x, scale, bias, eps, begin)
+        if got is not None:
+            y, mean, var = got
+            return {"Y": [y], "Mean": [mean], "Variance": [var]}
+    axes = tuple(range(begin, x.dim()))
+    xf = x.float()
+    mean = xf.mean(dim=axes, keepdim=True)
+    var = xf.var(dim=axes, unbiased=False, keepdim=True)
+    y = (xf - mean) * torch.rsqrt(var + eps)
+    norm_shape = tuple(x.shape[begin:])
+    if scale is not None:
+        y = y * scale.reshape(norm_shape)
+    if bias is not None:
+        y = y + bias.reshape(norm_shape)
+    return {"Y": [y.to(x.dtype)], "Mean": [mean.squeeze()],
+            "Variance": [var.squeeze()]}
+
+
+@kernel("dropout")
+def _dropout(ctx, ins, attrs):
+    """Under is_test (the op's attr or the executor's mode): identity for
+    upscale_in_train, a scale by 1 - p for downgrade_in_infer. In
+    training, each element is kept with probability 1 - p, drawn from
+    the op's generator."""
+    x = _x(ins)
+    p = attrs.get("dropout_prob", 0.5)
+    is_test = attrs.get("is_test", False) or ctx.is_test
+    impl = attrs.get("dropout_implementation", "downgrade_in_infer")
+    if is_test or p == 0.0:
+        out = x * (1.0 - p) if (impl == "downgrade_in_infer" and p) else x
+        return {"Out": [out], "Mask": [torch.ones_like(x)]}
+    keep = torch.rand(x.shape, generator=ctx.generator(),
+                      device=x.device) < (1.0 - p)
+    zero = torch.zeros_like(x)
+    if impl == "upscale_in_train":
+        out = torch.where(keep, x / (1.0 - p), zero)
+    else:
+        out = torch.where(keep, x, zero)
+    return {"Out": [out], "Mask": [keep.to(x.dtype)]}
+
+
+@kernel("sequence_mask")
+def _sequence_mask(ctx, ins, attrs):
+    seq_len = _x(ins)
+    maxlen = attrs.get("maxlen", -1)
+    if maxlen <= 0:
+        raise ValueError("sequence_mask requires a static maxlen > 0")
+    m = torch.arange(maxlen, device=seq_len.device)[None, :] \
+        < seq_len.reshape(-1, 1)
+    return {"Y": [m.to(to_torch_dtype(attrs.get("out_dtype", "int64")))]}
+
+
 def _attn_softmax(logits):
     """Softmax over the last dim with f32 internals, returned in the
-    logits' own dtype (`paddle_tpu/ops/kernels_nn.py:741`). A fully
-    masked row (max -inf) gets a finite shift of 0, as in the
-    reference."""
+    logits' own dtype. A fully masked row (max -inf) gets a finite
+    shift of 0, as in the reference."""
     m = logits.amax(dim=-1, keepdim=True)
     m = torch.where(torch.isfinite(m), m, torch.zeros_like(m))
     e = torch.exp((logits - m).float())
     return (e / e.sum(dim=-1, keepdim=True)).to(logits.dtype)
+
+
+@kernel("scaled_dot_product_attention")
+def _sdpa(ctx, ins, attrs):
+    """softmax(q k^T * scale + mask) v, with the causal part (a
+    bottom-right diagonal) at -inf; bf16 inputs compute their logits in
+    bf16, everything else in f32. layout "bthd" keeps heads in the
+    third dim and needs no transpose."""
+    q, k, v = ins["Q"][0], ins["K"][0], ins["V"][0]
+    mask = _opt(ins, "Mask")
+    scale = attrs.get("scale", None) or (1.0 / np.sqrt(q.shape[-1]))
+    bthd = attrs.get("layout", "bhtd") == "bthd"
+    cdt = torch.bfloat16 if q.dtype == torch.bfloat16 else torch.float32
+    sc = torch.tensor(scale, dtype=cdt, device=q.device)
+    if bthd:
+        logits = torch.einsum("bqhd,bkhd->bhqk", q, k).to(cdt) * sc
+    else:
+        logits = torch.einsum("...qd,...kd->...qk", q, k).to(cdt) * sc
+    if mask is not None:
+        logits = logits + mask.to(cdt)
+    if attrs.get("causal", False):
+        T, S = logits.shape[-2], logits.shape[-1]
+        cm = torch.ones((T, S), dtype=torch.bool,
+                        device=q.device).tril(diagonal=S - T)
+        logits = logits.masked_fill(~cm, float("-inf"))
+    w = _attn_softmax(logits).to(q.dtype)
+    if bthd:
+        out = torch.einsum("bhqk,bkhd->bqhd", w, v)
+    else:
+        out = torch.einsum("...qk,...kd->...qd", w, v)
+    return {"Out": [out], "Weights": [w]}
+
+
+@kernel("add_position_encoding")
+def _add_position_encoding(ctx, ins, attrs):
+    """x [B,T,D] plus the sinusoidal table [T,D] in f32 (sin of the
+    first D/2 frequencies, then cos), as alpha*x + beta*pe."""
+    x = _x(ins)
+    alpha, beta = attrs.get("alpha", 1.0), attrs.get("beta", 1.0)
+    _B, T, D = x.shape
+    pos = torch.arange(T, dtype=torch.float32, device=x.device)[:, None]
+    i = torch.arange(D // 2, dtype=torch.float32, device=x.device)[None, :]
+    angle = pos / torch.pow(10000.0, 2 * i / D)
+    pe = torch.cat([torch.sin(angle), torch.cos(angle)], dim=-1)
+    return {"Out": [alpha * x + beta * pe[None].to(x.dtype)]}
+
+
+@kernel("flash_attention")
+def _flash_attention(ctx, ins, attrs):
+    """Flash attention: the hand-written kernel (its plain version on
+    the CPU) for a per-key bias or none, else the sdpa composition.
+    layout "bthd" (what multi_head_attention emits) or "bhtd"; the
+    kernel reads either through strides, so no transpose is made."""
+    q, k, v = ins["Q"][0], ins["K"][0], ins["V"][0]
+    scale = attrs.get("scale", None) or (1.0 / np.sqrt(q.shape[-1]))
+    fused = ctx.accel("flash_attention")
+    if fused is not None:
+        out = fused(q, k, v, bias=_opt(ins, "Mask"),
+                    causal=attrs.get("causal", False), scale=scale,
+                    layout=attrs.get("layout", "bhtd"))
+        if out is not None:
+            return {"Out": [out],
+                    "Weights": [torch.zeros((0,), dtype=q.dtype,
+                                            device=q.device)]}
+    return _sdpa(ctx, ins, attrs)

@@ -82,13 +82,16 @@ class DecodeEngine:
     @classmethod
     def from_scope(cls, scope, model_cfg, config=None, names=None,
                    **kw):
-        """Build from a ``{name: ndarray}`` mapping (a saved scope).
-        `names` defaults to every name decode could need in either
-        checkpoint layout; absent ones are skipped."""
+        """Build from a scope: any object with `get` and `__contains__`,
+        such as the port's `core.scope.Scope`, the reference's Scope or
+        a ``{name: array}`` dict. Values may be numpy arrays, jax arrays
+        or tensors, in either checkpoint layout. `names` defaults to
+        every name decode could need in either layout; absent ones are
+        skipped."""
         if names is None:
             names = [n for n in _decode_name_universe(model_cfg)
                      if n in scope]
-        arrays = {n: np.asarray(scope[n]) for n in names}
+        arrays = {n: scope.get(n) for n in names}
         return cls(model_cfg, arrays, config=config, **kw)
 
     # ------------------------------------------------------- properties

@@ -325,16 +325,24 @@ class ContinuousScheduler:
     # ------------------------------------------------------- lifecycle
     def start(self):
         """Spawn the supervised decode loop thread."""
-        if self._thread is not None and self._thread.is_alive():
-            return self
-        self._started = True
-        self._thread = threading.Thread(
-            target=self._loop_guarded,
-            name=f"ptt-decode-{self.name}", daemon=True)
-        self._thread.start()
+        with self._cond:
+            if self._thread is None or not self._thread.is_alive():
+                self._spawn(None)
         return self
 
-    def _loop_guarded(self):
+    def _spawn(self, prev):
+        # under self._cond, so stop() never reads a missing or stale loop
+        self._started = True
+        self._thread = threading.Thread(
+            target=self._loop_guarded, args=(prev,),
+            name=f"ptt-decode-{self.name}", daemon=True)
+        self._thread.start()
+
+    def _loop_guarded(self, prev):
+        if prev is not None:
+            # the crashed loop ends before its successor runs, so
+            # joining the newest loop joins every loop
+            prev.join()
         try:
             self._loop()
         except BaseException as e:      # noqa: BLE001 — thread death
@@ -345,10 +353,8 @@ class ContinuousScheduler:
             _LOG.warning(
                 "decode loop %s died (%s: %s) — slots reclaimed, "
                 "restarting", self.name, type(e).__name__, e)
-            # the dying thread IS self._thread and still alive here;
-            # drop the reference so start() actually respawns
-            self._thread = None
-            self.start()
+            with self._cond:
+                self._spawn(threading.current_thread())
 
     def _loop(self):
         while True:
@@ -387,9 +393,17 @@ class ContinuousScheduler:
                     q.clear()
                 self._queued = 0
             self._cond.notify_all()
-        t = self._thread
-        if t is not None:
-            t.join(timeout)
+        # a loop that crashes while we wait spawns a successor: join
+        # whichever loop is newest until it stays the same
+        deadline = time.monotonic() + timeout
+        t = None
+        while True:
+            with self._cond:
+                newest = self._thread
+            if newest is None or newest is t:
+                break
+            t = newest
+            t.join(max(0.0, deadline - time.monotonic()))
         if not drain:
             for slot in self.pool.active():
                 slot.request.future.set_error(ServerClosed(
@@ -403,9 +417,9 @@ class ContinuousScheduler:
 
     @property
     def alive(self):
-        """False exactly in the crashed-and-not-yet-respawned window of
-        a started loop. A scheduler that was never started is driven
-        by hand — always alive."""
+        """False once a started loop has ended without a successor (a
+        crashed loop respawns before it ends). A scheduler that was
+        never started is driven by hand — always alive."""
         if not self._started:
             return True
         t = self._thread

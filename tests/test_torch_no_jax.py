@@ -21,8 +21,14 @@ names = [m.name for m in pkgutil.walk_packages(
 for n in names:
     importlib.import_module(n)
 import chip_smoke
-assert len(names) >= 16, names
-assert 'paddle_tpu_torch.ops.kern.quant' in names, names
+assert len(names) >= 37, names
+for m in ('ops.kern.quant', 'ops.kern.layer_norm', 'ops.kern.flash_attention',
+          'unique_name', 'core.dtypes', 'core.place', 'core.framework',
+          'core.scope', 'core.trace', 'core.executor', 'param_attr',
+          'initializer', 'layer_helper', 'layers.nn', 'layers.io',
+          'layers.tensor', 'layers.sequence', 'ops.registry',
+          'ops.kernels_math', 'ops.kernels_tensor', 'ops.kernels_nn'):
+    assert 'paddle_tpu_torch.' + m in names, (m, names)
 bad = [m for m in sys.modules
        if m == 'jax' or m.startswith('jax.') or m == 'jaxlib'
        or m.startswith('jaxlib.') or m == 'paddle_tpu'
@@ -56,7 +62,8 @@ def test_port_imports_no_jax_and_chip_smoke_fails_without_a_card():
     assert r.stdout.startswith("OK")
 
 
-@pytest.mark.parametrize("entry", ["engine", "decoder", "params"])
+@pytest.mark.parametrize("entry", ["engine", "decoder", "params",
+                                   "executor"])
 def test_entry_points_raise_without_cuda_unless_cpu_is_asked(entry,
                                                              monkeypatch):
     from paddle_tpu_torch.models import transformer as ttfm
@@ -79,7 +86,9 @@ def test_entry_points_raise_without_cuda_unless_cpu_is_asked(entry,
         shapes[f"layer_norm_{j}.w_0"] = (8,)
         shapes[f"layer_norm_{j}.b_0"] = (8,)
     params = {n: np.ones(s, np.float32) for n, s in shapes.items()}
+    from paddle_tpu_torch.core.executor import Executor
     build = {
+        "executor": lambda device=None: Executor(device),
         "engine": lambda **kw: DecodeEngine(
             cfg, params, DecodeEngineConfig(num_slots=2), **kw),
         "decoder": lambda **kw: ttfm.IncrementalDecoder(cfg, params, 2,

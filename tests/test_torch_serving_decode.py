@@ -381,3 +381,44 @@ def test_engine_from_scope_and_rolling_set_params():
     wide["proj.w_0"] = np.zeros((32, 65), np.float32)
     with pytest.raises(ValueError, match="proj.w_0"):
         other.set_params(wide)
+
+
+@pytest.mark.parametrize("kind", ["reference", "port"])
+@pytest.mark.parametrize("with_names", [False, True])
+def test_engine_from_scope_takes_a_scope_object(kind, with_names):
+    """`from_scope` reads a scope through `get` and `__contains__`: the
+    JAX package's Scope (jax arrays) and the port's (tensors) build the
+    same engine as the parameter dict, with and without an explicit
+    `names` list, in the fused checkpoint layout among unrelated
+    entries."""
+    from paddle_tpu.core.scope import Scope as JScope
+    from paddle_tpu_torch.core.scope import scope_from_numpy
+    cfg = tiny_cfg(ttfm)
+    params = seeded_params(cfg, seed=3)
+    fused = dict(ttfm.convert_qkv_checkpoint(params, cfg, to_fused=True))
+    fused["learning_rate_0"] = np.ones(1, np.float32)
+    if kind == "reference":
+        import jax.numpy as jnp
+        scope = JScope()
+        for n, a in fused.items():
+            scope.set(n, jnp.asarray(a))
+    else:
+        scope = scope_from_numpy(fused, torch.device("cpu"))
+    assert not hasattr(scope, "__getitem__")
+    names = sorted(n for n in fused if n != "learning_rate_0") \
+        if with_names else None
+    conf = tdecode.DecodeEngineConfig(num_slots=2, max_len=12)
+
+    def tokens(engine):
+        sched = tdecode.ContinuousScheduler(engine, warmup=False)
+        f = sched.submit(np.arange(2, 9), max_new_tokens=6)
+        while not f.done():
+            sched.run_iteration()
+        return list(f.result(timeout=0).tokens)
+
+    want = tokens(tdecode.DecodeEngine(cfg, params, conf, device="cpu"))
+    got = tdecode.DecodeEngine.from_scope(scope, cfg, conf, names=names,
+                                          device="cpu")
+    assert tokens(got) == want
+    for n, t in got.decoder.params.items():
+        assert torch.equal(t, torch.from_numpy(params[n]))

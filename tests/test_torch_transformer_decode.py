@@ -290,3 +290,95 @@ def test_step_rejects_positions_outside_the_cache():
 def test_config_presets_match_jax(preset):
     assert vars(getattr(ttfm.TransformerConfig, preset)()) \
         == vars(getattr(jtfm.TransformerConfig, preset)())
+
+
+# bf16 checkpoint against the JAX decoder: both keep the checkpoint's
+# dtype and follow JAX's promotions, so the encoder prefill and the
+# step's embedding and layer-0 q/k/v projections run in bf16 in both,
+# with one bf16 rounding after each op. The JAX decoder is run op by op
+# (`jax.disable_jit()`) for this comparison: under jit, XLA keeps
+# intermediates of a fusion in f32 (its default excess precision), so
+# the jitted reference differs from its own op-by-op run by ~7e-2 here,
+# by roundings that depend on XLA's fusion choices and that no eager
+# implementation can follow. One reference inconsistency remains: the
+# reference's composition rounds layer 0's softmax weights to bf16
+# (`w.astype(x.dtype)`) before the weighted sum, while the port's
+# attention kernels (and, on the TPU, the reference's own kernel path,
+# which then casts the kernel's output to bf16 instead) keep them in
+# f32; the port holds to the composition everywhere else. Measured on
+# these weights: 9.3e-4 from the op-by-op reference on logits of
+# magnitude ~6, where the old fp32 upcast of the checkpoint was 0.47
+# apart.
+BF16_LOGIT_ATOL = 2e-3
+# against the jitted reference: its excess-precision roundings (7.2e-2
+# measured) plus the above
+BF16_JIT_LOGIT_ATOL = 0.15
+
+
+def test_bf16_checkpoint_decodes_in_bf16_as_in_jax(record_property):
+    """A bf16 checkpoint (layer-norm parameters fp32, as AMP keeps
+    them): 4 slots, 8 steps teacher-forced on the JAX decoder's tokens,
+    logits within BF16_LOGIT_ATOL of the JAX decoder run op by op and
+    within BF16_JIT_LOGIT_ATOL of it jitted, a token differing only
+    where the JAX logits' top-two margin is below the tolerance; the
+    port's parameters stay bf16 (layer norm fp32) and its caches fp32,
+    and decoding the same weights upcast to fp32 is far further off."""
+    import contextlib
+
+    import jax
+    import ml_dtypes
+    S, T = 4, 12
+    params32 = seeded_params(tiny_cfg(jtfm), seed=7)
+    params = {n: a if n.startswith("layer_norm")
+              else a.astype(ml_dtypes.bfloat16) for n, a in params32.items()}
+    src, lens = _sources(S, T, seed=5)
+    kw = dict(num_slots=S, max_len=T, return_logits=True)
+
+    def run(dec, teacher=None, eager=False):
+        ctx = jax.disable_jit() if eager else contextlib.nullcontext()
+        with ctx:
+            st = dec.write_slots(dec.init_state(), dec.prefill(src, lens),
+                                 list(range(S)))
+            ids = np.zeros(S, np.int64)
+            pos = np.array([0, 2, 3, 1])   # slots at their own depths
+            logits, toks = [], []
+            for t in range(8):
+                toks.append(np.asarray(dec.step(st, ids, pos), np.int64))
+                logits.append(np.asarray(dec.last_logits))
+                ids = toks[-1] if teacher is None else teacher[t]
+                pos = pos + 1
+        return logits, toks, st
+
+    jlog, jtok, _ = run(jtfm.IncrementalDecoder(tiny_cfg(jtfm), params,
+                                                **kw), eager=True)
+    jitlog, _, _ = run(jtfm.IncrementalDecoder(tiny_cfg(jtfm), params,
+                                               **kw), teacher=jtok)
+    tdec = ttfm.IncrementalDecoder(tiny_cfg(ttfm), params, device="cpu",
+                                   **kw)
+    assert tdec.params["proj.w_0"].dtype == torch.bfloat16
+    assert tdec.params["layer_norm_0.w_0"].dtype == torch.float32
+    tlog, ttok, tst = run(tdec, teacher=jtok)
+    assert tst["kc"].dtype == tst["ck"].dtype == torch.float32
+    uplog, _, _ = run(ttfm.IncrementalDecoder(tiny_cfg(ttfm), params32,
+                                              device="cpu", **kw),
+                      teacher=jtok)
+    worst = worst_jit = worst_up = 0.0
+    flips = 0
+    for t, (jl, tl) in enumerate(zip(jlog, tlog)):
+        diff = float(np.abs(tl - jl).max())
+        worst = max(worst, diff)
+        worst_jit = max(worst_jit, float(np.abs(tl - jitlog[t]).max()))
+        worst_up = max(worst_up, float(np.abs(uplog[t] - jl).max()))
+        assert diff <= BF16_LOGIT_ATOL, f"step {t}: logits {diff} apart"
+        top2 = np.sort(jl, axis=-1)[:, -2:]
+        margin = top2[:, 1] - top2[:, 0]
+        differ = ttok[t] != jtok[t]
+        assert np.all(margin[differ] < BF16_LOGIT_ATOL), \
+            f"step {t}: token differs at a top-two margin of {margin}"
+        flips += int(differ.sum())
+    assert worst_jit <= BF16_JIT_LOGIT_ATOL
+    assert worst_up > 10 * BF16_LOGIT_ATOL     # the old upcast is not it
+    record_property("bf16_max_logit_diff", worst)
+    print(f"bf16 checkpoint: max logit diff {worst:.3e} from the op-by-op "
+          f"reference, {worst_jit:.3e} from the jitted one (fp32 upcast "
+          f"{worst_up:.3e}), {flips} token flips")
