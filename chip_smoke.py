@@ -18,12 +18,19 @@ weights made from a seed:
 - Transformer-base inference through the Fluid Program and Executor:
   `build_infer_program` built with the port's layers, `run_startup`,
   then `greedy_decode` through `Executor.run` (kernels `layer_norm` and
-  `flash_attention`).
+  `flash_attention`);
+- the Transformer-base training step (fp32, Adam) through the Program
+  and Executor: `build_program`, `optimizer.Adam(1e-3).minimize`,
+  `run_startup`, then `Executor.run` of the training program on the
+  copy task at (B, T) = (64, 128) (kernels `flash_attention`,
+  `flash_attention_dq`, `flash_attention_dkv`, `layer_norm` and
+  `layer_norm_bwd`).
 
 For each path it checks that every step went through its kernels. It
-compares the card's logits and tokens with the port's CPU run, the int8
-cache with the fp32 cache on the card, and times each kernel beside its
-bound, its plain version and, where one exists, a PyTorch library call.
+compares the card's logits, tokens, losses and trained parameters with
+the port's CPU run, the int8 cache with the fp32 cache on the card, and
+times each kernel beside its bound, its plain version and, where one
+exists, a PyTorch library call.
 
 It imports nothing of JAX or of `paddle_tpu`. Where CUDA is not
 available, or any phase fails, it exits non-zero and prints no result.
@@ -68,6 +75,48 @@ INT8_VS_FP32_LOGIT = 0.5
 # different orders; logits are O(10). Tokens may differ only where the
 # CPU logits' top-two margin is below it.
 PROGRAM_LOGIT_ATOL = 2e-3
+# backward kernels against their plain versions, both fp32 on the card,
+# as numpy's allclose (|a - b| <= atol + rtol |b|): the JAX package's own
+# gradient tolerances, tests/test_flash_attention.py:74-78 (flash dq, dk,
+# dv) and tests/test_pallas_layer_norm.py:57 (LayerNorm dx, dscale,
+# dbias)
+FLASH_GRAD_TOL = 1e-4
+LN_GRAD_TOL = 2e-4
+# the training step, card against CPU from one scope, fp32, dropout 0,
+# 3 steps. Each step runs on the card from the CPU's state (teacher
+# forcing), and is held to the CPU's step in three parts:
+# - the loss within tests/test_flash_attention.py:144's 2e-4;
+# - each parameter's gradient, tensor by tensor: |diff| within
+#   TRAIN_GRAD_RTOL of that tensor's largest gradient plus
+#   TRAIN_GRAD_FLOOR (one fp32 rounding) of the step's largest, the
+#   floor for tensors whose gradient is rounding noise (cross
+#   attention's q weights, whose largest falls to 1e-11 of the step's
+#   largest); at most TRAIN_OUTLIER_SHARE of a tensor's elements may lie
+#   outside. Outliers come from a ReLU whose input lies within rounding
+#   of 0: the card and the CPU pass its gradient on different sides,
+#   which moves that unit's fc1 bias element and fc1 weight column by one
+#   token's share; the share admits two such units in one layer (2 of
+#   an fc1 bias's 2048 elements) and no outlier in a tensor of fewer
+#   than 1000 elements;
+# - the Adam tail: every parameter and moment the card writes equals
+#   the port's `adam` op run on the CPU from the step's state and the
+#   card's own gradients, within TRAIN_ADAM_RTOL (a few fp32 roundings)
+#   of the value, or of lr for parameters and of the tensor's largest
+#   for moments; the beta powers and the learning rate are identical.
+#   (Against the CPU's parameters no tight bound holds: Adam divides by
+#   |g| + eps, so an element whose gradient is within rounding of 0
+#   moves by up to lr either way.)
+# The card and the CPU must each repeat step 1 bit for bit.
+TRAIN_LOSS_TOL = 2e-4
+TRAIN_GRAD_RTOL = 1e-3
+TRAIN_GRAD_FLOOR = 2.0 ** -23
+TRAIN_OUTLIER_SHARE = 1e-3
+TRAIN_ADAM_RTOL = 1e-6
+# the training configuration of bench.py:302-306, fp32
+TRAIN_B, TRAIN_T, TRAIN_LR = 64, 128, 1e-3
+# an idle share (1 - device busy / host wall, one profiled window) below
+# -IDLE_NOISE fails: see idle_share
+IDLE_NOISE = 0.01
 
 
 class SmokeFailure(RuntimeError):
@@ -123,6 +172,49 @@ def device_ms(torch, fn, n_iter):
     e1.record()
     torch.cuda.synchronize()
     return e0.elapsed_time(e1) / n_iter
+
+
+def profile_window(torch, fn, n, warm):
+    """`fn()` `warm` times, then n times unprofiled and n times under
+    torch.profiler, each window ending with a synchronize: (host wall
+    ms per call unprofiled, host wall ms per call profiled, {device
+    kernel name: us per call} of the profiled window)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    for _ in range(warm):
+        fn()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for _ in range(n):
+        fn()
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t) / n * 1e3
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+        prof_ms = (time.perf_counter() - t) / n * 1e3
+    by_name = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            by_name[e.name] = by_name.get(e.name, 0.0) \
+                + e.time_range.elapsed_us() / n
+    return wall_ms, prof_ms, by_name
+
+
+def idle_share(busy_us, prof_ms, what):
+    """1 - device busy / host wall, both of the profiled window,
+    unclamped. The port launches on one stream, so its kernels do not
+    overlap and busy time exceeds the wall only by the error of the
+    profiler's alignment of the device's clock to the host's: a share
+    below -IDLE_NOISE fails."""
+    share = 1 - busy_us / 1e3 / prof_ms
+    check(share >= -IDLE_NOISE,
+          f"{what}: device busy {busy_us / 1e3:.3f} ms exceeds the "
+          f"profiled wall {prof_ms:.3f} ms")
+    return share
 
 
 # --------------------------------------------------------------- phases
@@ -512,10 +604,9 @@ def phase_serving(torch, kern, tfm, dec_mod, params, cfg, kv_quant=None):
 def phase_step_profile(torch, engine, pick, cfg):
     """Where one decode step's time goes with all 32 slots live at the
     serving run's median positions: host wall per step, device busy
-    time per step from torch.profiler, and the kernels that take it
+    time per step from torch.profiler, idle share in the profiled
+    window, and the kernels that take it
     (the port's own: `attend_kernel` and `quantize_kernel`)."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
     dec = engine.decoder
     S, Ts = dec.num_slots, dec.src_max_len
     rng = np.random.default_rng(SEED + 5)
@@ -526,22 +617,8 @@ def phase_step_profile(torch, engine, pick, cfg):
     state = dec.write_slots(dec.init_state(), dec.prefill(src, lens),
                             list(range(S)))
     ids = rng.integers(2, cfg.trg_vocab, S)
-    n = 20
-    for _ in range(3):
-        dec.step(state, ids, pick)
-    t = time.perf_counter()
-    for _ in range(n):
-        dec.step(state, ids, pick)
-    wall_ms = (time.perf_counter() - t) / n * 1e3
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(n):
-            dec.step(state, ids, pick)
-    by_name = {}
-    for e in prof.events():
-        if e.device_type == DeviceType.CUDA:
-            by_name[e.name] = by_name.get(e.name, 0.0) \
-                + e.time_range.elapsed_us() / n
+    wall_ms, prof_ms, by_name = profile_window(
+        torch, lambda: dec.step(state, ids, pick), n=20, warm=3)
     busy_us = sum(by_name.values())
     cache = dec.kv_quant or "fp32"
     if busy_us == 0:
@@ -549,6 +626,7 @@ def phase_step_profile(torch, engine, pick, cfg):
             f"{wall_ms:.3f} ms/step; device time not visible to "
             f"torch.profiler (not measured)")
         return
+    share = idle_share(busy_us, prof_ms, f"{cache} decode step")
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
     ours = "; ".join(
         f"{kname} {us:.2f} us/step ({us / busy_us:.3f} of device time)"
@@ -557,10 +635,11 @@ def phase_step_profile(torch, engine, pick, cfg):
             for kname in ("attend_kernel", "quantize_kernel")) if us)
     log(f"[profile] {cache} decode step, 32 live slots, attended_rows="
         f"{int(np.minimum(pick + 1, dec.max_len).sum())}: host wall "
-        f"{wall_ms:.3f} ms/step (unprofiled); device busy "
-        f"{busy_us / 1e3:.3f} ms/step -> idle share "
-        f"{max(0.0, 1 - busy_us / 1e3 / wall_ms):.3f}; {ours}; "
-        f"top device ops us/step: "
+        f"{wall_ms:.3f} ms/step unprofiled, {prof_ms:.3f} ms/step "
+        f"profiled; device busy {busy_us / 1e3:.3f} ms/step -> idle share "
+        f"{share:.3f} (profiled window; "
+        f"{1 - busy_us / 1e3 / wall_ms:.3f} against the unprofiled wall); "
+        f"{ours}; top device ops us/step: "
         + "; ".join(f"{k[:60]}={v:.1f}" for k, v in top))
 
 
@@ -1005,10 +1084,9 @@ def phase_program_profile(torch, exe, main, logits, scope, src, lens,
                           ids):
     """Where one Executor.run's time goes (the greedy run's step at
     t = 64): host wall per run, device busy time per run from
-    torch.profiler, idle share, and the kernels that take it (the
-    port's own: `flash_fwd_kernel` and `layer_norm_fwd_kernel`)."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    torch.profiler, idle share in the profiled window, and the kernels
+    that take it (the port's own: `flash_fwd_kernel` and
+    `layer_norm_fwd_kernel`)."""
     B = src.shape[0]
     feed = {"src": src, "src_len": lens, "trg": ids,
             "trg_len": np.full((B,), 64, np.int64)}
@@ -1017,27 +1095,13 @@ def phase_program_profile(torch, exe, main, logits, scope, src, lens,
     def once():
         return exe.run(main, feed=feed, fetch_list=fetch, scope=scope,
                        is_test=True)
-    n = 10
-    for _ in range(3):
-        once()
-    t = time.perf_counter()
-    for _ in range(n):
-        once()
-    wall_ms = (time.perf_counter() - t) / n * 1e3
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(n):
-            once()
-    by_name = {}
-    for e in prof.events():
-        if e.device_type == DeviceType.CUDA:
-            by_name[e.name] = by_name.get(e.name, 0.0) \
-                + e.time_range.elapsed_us() / n
+    wall_ms, prof_ms, by_name = profile_window(torch, once, n=10, warm=3)
     busy_us = sum(by_name.values())
     if busy_us == 0:
         log(f"[profile] program run: host wall {wall_ms:.3f} ms/run; "
             f"device time not visible to torch.profiler (not measured)")
         return
+    share = idle_share(busy_us, prof_ms, "program run")
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
     ours = "; ".join(
         f"{kname} {us:.1f} us/run ({us / busy_us:.3f} of device time)"
@@ -1045,10 +1109,12 @@ def phase_program_profile(torch, exe, main, logits, scope, src, lens,
             (kname, sum(v for k, v in by_name.items() if kname in k))
             for kname in ("flash_fwd_kernel", "layer_norm_fwd_kernel")))
     log(f"[profile] program run (B={B}, T=128, argmax fetch): host wall "
-        f"{wall_ms:.3f} ms/run (unprofiled); device busy "
-        f"{busy_us / 1e3:.3f} ms/run -> idle share "
-        f"{max(0.0, 1 - busy_us / 1e3 / wall_ms):.3f}; {ours}; top device "
-        f"ops us/run: " + "; ".join(f"{k[:60]}={v:.1f}" for k, v in top))
+        f"{wall_ms:.3f} ms/run unprofiled, {prof_ms:.3f} ms/run profiled; "
+        f"device busy {busy_us / 1e3:.3f} ms/run -> idle share "
+        f"{share:.3f} (profiled window; "
+        f"{1 - busy_us / 1e3 / wall_ms:.3f} against the unprofiled wall); "
+        f"{ours}; top device ops us/run: "
+        + "; ".join(f"{k[:60]}={v:.1f}" for k, v in top))
 
 
 def phase_times_layer_norm(torch, ln, dev):
@@ -1154,6 +1220,573 @@ def phase_times_flash(torch, fa, dev):
     return out[False]
 
 
+def _allclose_err(torch, got, want, tol):
+    """(max |got - want|, whether |got - want| <= tol + tol |want|
+    everywhere)."""
+    diff = (got.float() - want.float()).abs()
+    return float(diff.max()), bool((diff <= tol + tol * want.float().abs())
+                                   .all())
+
+
+def _flash_bwd_inputs(torch, fa, rng, dev, B, H, T, S, D, layout, bias_kind,
+                      causal, off):
+    """q, k, v, a per-key pad bias (or None), the forward's out and lse
+    (plain version), cotangents dout and dlse that are zero on rows with
+    no key, and delta = rowsum(dout * out) - dlse, as the backward's
+    wrapper computes it."""
+    def mk(n, d=D):
+        shp = (B, H, n, d) if layout == "bhtd" else (B, n, H, d)
+        return torch.from_numpy(rng.standard_normal(
+            shp, dtype=np.float32)).to(dev)
+    q, k, v, dout = mk(T), mk(S), mk(S), mk(T)
+    bias = None
+    if bias_kind is not None:
+        lens = rng.integers(1, S + 1, B)
+        lens[0] = S
+        keep = (np.arange(S)[None, :] < lens[:, None]).astype(np.float32)
+        pad = keep * 1e9 - 1e9
+        bias = {"b11s": pad[:, None, None, :], "bs": pad, "1s": pad[:1],
+                "111s": pad[:1, None, None, :]}[bias_kind]
+        bias = torch.from_numpy(np.ascontiguousarray(bias)).to(dev)
+    out, lse = fa.flash_attention_plain(q, k, v, bias, causal, D ** -0.5,
+                                        off, layout)
+    live = torch.from_numpy(
+        np.arange(T) + (S - T + off if causal else S) >= 0).to(dev)
+    lv = live[None, None, :, None] if layout == "bhtd" \
+        else live[None, :, None, None]
+    dout = dout * lv
+    dlse = torch.from_numpy(rng.standard_normal(
+        (B, H, T), dtype=np.float32)).to(dev) * live
+    o, do = (x if layout == "bhtd" else x.transpose(1, 2)
+             for x in (out, dout))
+    delta = (do * o).sum(-1) - dlse
+    return q, k, v, bias, dout, lse, delta
+
+
+def phase_flash_bwd_vs_plain(torch, fa, dev):
+    """The dq and dk/dv kernels against their plain versions on the
+    card, as allclose at FLASH_GRAD_TOL: at the training shape (B 64,
+    H 8, T = S = 128, D 64, bthd, pad bias, causal and not) and on a
+    dozen more cases: T != S, lengths 37 and 50 that are not tile
+    multiples, D 32 and 128, the bhtd layout, every bias shape, causal
+    offsets -1 and -5, all with an lse cotangent folded into delta; the
+    bias-gradient rows on every case with a bias. Each kernel runs
+    twice: the results must be identical (no atomics)."""
+    rng = np.random.default_rng(SEED + 20)
+    worst = {"flash_attention_dq": 0.0, "flash_attention_dkv": 0.0}
+    cases = [(64, 8, 128, 128, 64, "bthd", "b11s", c, 0)
+             for c in (False, True)]
+    cases += [(4, 8, 128, 96, 64, "bthd", "b11s", False, 0),
+              (4, 8, 96, 128, 64, "bthd", "b11s", True, 0),
+              (4, 8, 50, 37, 64, "bthd", "bs", False, 0),
+              (4, 8, 37, 50, 64, "bthd", "b11s", True, 0),
+              (4, 8, 128, 128, 32, "bthd", "b11s", True, 0),
+              (4, 8, 128, 128, 128, "bhtd", "1s", False, 0),
+              (4, 8, 96, 128, 128, "bhtd", "111s", True, 0),
+              (4, 8, 128, 128, 64, "bthd", "b11s", True, -1),
+              (2, 4, 50, 37, 64, "bhtd", None, True, -5),
+              (3, 2, 37, 37, 32, "bthd", None, False, 0),
+              (2, 3, 200, 64, 64, "bthd", "bs", True, 0)]
+    for B, H, T, S, D, layout, bias_kind, causal, off in cases:
+        q, k, v, bias, dout, lse, delta = _flash_bwd_inputs(
+            torch, fa, rng, dev, B, H, T, S, D, layout, bias_kind, causal,
+            off)
+        args = (q, k, v, bias, dout, lse, delta, causal, D ** -0.5, off,
+                layout)
+        dq = fa.flash_attention_dq(*args)
+        dq2 = fa.flash_attention_dq(*args)
+        dk, dv, db = fa.flash_attention_dkv(*args, bias_grad=True)
+        dk2, dv2, db2 = fa.flash_attention_dkv(*args, bias_grad=True)
+        torch.cuda.synchronize()
+        pdq = fa.flash_attention_dq_plain(*args)
+        pdk, pdv, pdb = fa.flash_attention_dkv_plain(*args, bias_grad=True)
+        torch.cuda.synchronize()
+        check(torch.equal(dq, dq2) and torch.equal(dk, dk2)
+              and torch.equal(dv, dv2)
+              and (db is None or torch.equal(db, db2)),
+              "flash backward kernels are not deterministic")
+        check(all(bool(torch.isfinite(x).all()) for x in (dq, dk, dv)),
+              "flash backward not finite")
+        e_q, ok_q = _allclose_err(torch, dq, pdq, FLASH_GRAD_TOL)
+        e_k, ok_k = _allclose_err(torch, dk, pdk, FLASH_GRAD_TOL)
+        e_v, ok_v = _allclose_err(torch, dv, pdv, FLASH_GRAD_TOL)
+        e_b, ok_b = (0.0, True) if db is None else \
+            _allclose_err(torch, db, pdb, FLASH_GRAD_TOL)
+        log(f"[kernel] flash backward B={B} H={H} T={T} S={S} D={D} "
+            f"{layout} bias={bias_kind} causal={causal} offset={off}: max "
+            f"|err| dq={e_q:.3e} dk={e_k:.3e} dv={e_v:.3e} db_rows="
+            f"{e_b:.3e} (allclose rtol=atol={FLASH_GRAD_TOL:.0e}; max "
+            f"|dq|={float(pdq.abs().max()):.2f} |dk|="
+            f"{float(pdk.abs().max()):.2f}); repeat identical")
+        check(ok_q, f"flash dq disagrees: {e_q}")
+        check(ok_k and ok_v and ok_b,
+              f"flash dk/dv/db disagree: {e_k} {e_v} {e_b}")
+        worst["flash_attention_dq"] = max(worst["flash_attention_dq"], e_q)
+        worst["flash_attention_dkv"] = max(worst["flash_attention_dkv"],
+                                           e_k, e_v, e_b)
+    return worst
+
+
+def phase_layer_norm_bwd_vs_plain(torch, ln, dev):
+    """The LayerNorm backward kernel against its plain version on the
+    card, as allclose at LN_GRAD_TOL for dx, dscale and dbias: at the
+    training shape [64, 128, 512], odd row counts, a single row, and
+    every width class of the kernel (C 32, 64, 96, 128, 256, 512, 1024;
+    eight warps a row: 1536, 2048, 4096, 8192). It runs twice: the
+    results must be identical (no atomics)."""
+    rng = np.random.default_rng(SEED + 21)
+    worst = 0.0
+    for shape in ((64, 128, 512), (1001, 512), (300, 2048), (37, 1536),
+                  (40, 8192), (7, 96), (1, 512), (9, 32), (3, 64),
+                  (2, 8, 128), (513, 256), (64, 1024), (100, 4096)):
+        C = shape[-1]
+        x = torch.from_numpy((rng.standard_normal(shape, dtype=np.float32)
+                              * 3.0 + 0.5).astype(np.float32)).to(dev)
+        dy = torch.from_numpy(rng.standard_normal(
+            shape, dtype=np.float32)).to(dev)
+        g = torch.from_numpy((1 + 0.2 * rng.standard_normal(
+            C, dtype=np.float32)).astype(np.float32)).to(dev)
+        got = ln.layer_norm_bwd(dy, x, g, 1e-5)
+        again = ln.layer_norm_bwd(dy, x, g, 1e-5)
+        torch.cuda.synchronize()
+        want = ln.layer_norm_bwd_plain(dy, x, g, 1e-5)
+        torch.cuda.synchronize()
+        check(all(torch.equal(a, b) for a, b in zip(got, again)),
+              "layer_norm backward kernel is not deterministic")
+        errs = [_allclose_err(torch, a, b, LN_GRAD_TOL)
+                for a, b in zip(got, want)]
+        rows = x.numel() // C
+        log(f"[kernel] layer_norm_bwd x={list(shape)} ({rows} rows): max "
+            f"|err| "
+            f"dx={errs[0][0]:.3e} dscale={errs[1][0]:.3e} dbias="
+            f"{errs[2][0]:.3e} (allclose rtol=atol={LN_GRAD_TOL:.0e}; max "
+            f"|dscale|={float(want[1].abs().max()):.2f}); repeat identical")
+        check(all(ok for _e, ok in errs),
+              f"layer_norm backward disagrees: {[e for e, _ in errs]}")
+        worst = max(worst, *(e for e, _ in errs))
+    return worst
+
+
+def build_train_program(tfm, fw, unique_name, optimizer, cfg, maxlen):
+    """The training program (build_program, then Adam(TRAIN_LR)
+    .minimize) built with the port's layers in fresh programs under a
+    fresh name guard: (main, startup, avg_cost)."""
+    main, startup = fw.Program(), fw.Program()
+    with fw.program_guard(main, startup), unique_name.guard():
+        _feeds, avg_cost, _tok = tfm.build_program(cfg, maxlen=maxlen)
+        optimizer.Adam(TRAIN_LR).minimize(avg_cost)
+    return main, startup, avg_cost
+
+
+def copy_task_feed(cfg, B, T, seed):
+    """bench.py:317-325's copy task: random source ids, the target is
+    the source shifted by one token id, every sentence full length."""
+    rng = np.random.RandomState(seed)
+    src = rng.randint(3, cfg.src_vocab, (B, T)).astype(np.int64)
+    trg = np.concatenate([np.zeros((B, 1), np.int64),
+                          (src[:, :-1] + 1) % cfg.trg_vocab], axis=1)
+    return {"src": src, "src_len": np.full(B, T, np.int64), "trg": trg,
+            "trg_len": np.full(B, T, np.int64),
+            "label": (src + 1) % cfg.trg_vocab}
+
+
+def train_config(tfm, dropout):
+    """bench.py:302-306's configuration with the given dropout."""
+    return tfm.TransformerConfig(
+        src_vocab=8000, trg_vocab=8000, max_len=TRAIN_T, d_model=512,
+        d_inner=2048, n_head=8, n_layer=6, dropout=dropout, fused_qkv=True)
+
+
+def phase_train(torch, kern, tfm, core, dev):
+    """The Transformer-base training step on the card, fp32, Adam(1e-3),
+    at bench.py's configuration (dropout 0.1, fused q/k/v) and batch
+    (B, T) = (64, 128) on the copy task: run_startup on the card, one
+    warm-up step, then 10 steps, each an Executor.run that fetches the
+    loss. Every launch count is set to 0 just before the 10 steps and
+    read just after: each step must launch the flash forward, dq and
+    dk/dv kernels once per attention op (18 at base), the LayerNorm
+    forward and backward kernels once per layer_norm op (30), and no
+    other kernel. Every loss must be finite, and the last below the
+    first."""
+    cfg = train_config(tfm, dropout=0.1)
+    B, T = TRAIN_B, TRAIN_T
+    main, startup, avg_cost = build_train_program(
+        tfm, core.framework, core.unique_name, core.optimizer, cfg, T)
+    main.random_seed = startup.random_seed = SEED
+    exe = core.Executor(core.CUDAPlace(0))
+    scope = core.Scope()
+    exe.run_startup(startup, scope=scope)
+    feed = copy_task_feed(cfg, B, T, 0)
+    census = {k: sum(op.type == k for op in main.global_block().ops)
+              for k in ("flash_attention", "layer_norm", "adam")}
+    per_step = {"flash_attention": 3 * cfg.n_layer,
+                "flash_attention_dq": 3 * cfg.n_layer,
+                "flash_attention_dkv": 3 * cfg.n_layer,
+                "layer_norm": 5 * cfg.n_layer,
+                "layer_norm_bwd": 5 * cfg.n_layer}
+    check(census["flash_attention"] == per_step["flash_attention"]
+          and census["layer_norm"] == per_step["layer_norm"]
+          and census["adam"] == len(main.all_parameters()),
+          f"training program census {census}")
+    t = time.perf_counter()
+    losses = [float(exe.run(main, feed=feed, fetch_list=[avg_cost],
+                            scope=scope)[0])]
+    torch.cuda.synchronize()
+    t_first = time.perf_counter() - t
+    n = 10
+    for name in kern.LAUNCHES:
+        kern.LAUNCHES[name] = 0
+    t0 = time.perf_counter()
+    for _ in range(n):
+        losses.append(float(exe.run(main, feed=feed, fetch_list=[avg_cost],
+                                    scope=scope)[0]))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(kern.LAUNCHES)
+    want = {k: 0 for k in launches}
+    want.update((k, c * n) for k, c in per_step.items())
+    n_params = sum(int(np.prod(p.shape)) for p in main.all_parameters())
+    log(f"[train] Transformer-base d_model={cfg.d_model} d_inner="
+        f"{cfg.d_inner} heads={cfg.n_head} layers={cfg.n_layer} vocab="
+        f"{cfg.trg_vocab} dropout={cfg.dropout} fused_qkv fp32, Adam("
+        f"{TRAIN_LR}), B={B} T={T}: {len(main.global_block().ops)} ops "
+        f"({census['adam']} adam, {len(main.all_parameters())} parameters, "
+        f"{n_params} weights); warm-up step {t_first:.3f} s; {n} steps "
+        f"wall_s={wall:.3f} trained_tokens_per_s={n * B * T / wall:.1f} "
+        f"host_ms_per_step={wall / n * 1e3:.3f} LAUNCHES={launches} "
+        f"(required {want}: {per_step} a step); losses (warm-up, then "
+        f"steps 1-{n}): " + ", ".join(f"{x:.6f}" for x in losses))
+    check(all(np.isfinite(losses)), f"a loss is not finite: {losses}")
+    check(losses[-1] < losses[1], f"loss did not fall: {losses}")
+    check(launches == want, f"LAUNCHES {launches} != {want}")
+    return launches, exe, main, avg_cost, scope, feed
+
+
+def phase_train_profile(torch, exe, main, avg_cost, scope, feed):
+    """Where one training step's time goes: host wall per step over 3
+    unprofiled steps (after 2 more), then torch.profiler over 3 steps:
+    device busy time per step, idle share in the profiled window, and
+    the device kernels that take it (the port's own:
+    flash_fwd_kernel, flash_dq_kernel, flash_dkv_kernel,
+    layer_norm_fwd_kernel, layer_norm_bwd_kernel and its reduce)."""
+
+    def once():
+        return exe.run(main, feed=feed, fetch_list=[avg_cost], scope=scope)
+    wall_ms, prof_ms, by_name = profile_window(torch, once, n=3, warm=2)
+    busy_us = sum(by_name.values())
+    if busy_us == 0:
+        log(f"[profile] training step: host wall {wall_ms:.3f} ms/step "
+            f"(unprofiled); device time not visible to torch.profiler (not "
+            f"measured)")
+        return
+    share = idle_share(busy_us, prof_ms, "training step")
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:10]
+    ours = "; ".join(
+        f"{kname} {us:.1f} us/step ({us / busy_us:.3f} of device time)"
+        for kname, us in (
+            (kname, sum(v for k, v in by_name.items() if kname in k))
+            for kname in ("flash_fwd_kernel", "flash_dq_kernel",
+                          "flash_dkv_kernel", "layer_norm_fwd_kernel",
+                          "layer_norm_bwd_kernel", "layer_norm_bwd_reduce")))
+    gemm_us = sum(v for k, v in by_name.items()
+                  if "gemm" in k or "splitKreduce" in k)
+    log(f"[profile] training step (B={TRAIN_B}, T={TRAIN_T}): host wall "
+        f"{wall_ms:.3f} ms/step unprofiled, {prof_ms:.3f} ms/step "
+        f"profiled; device busy {busy_us / 1e3:.3f} ms/step -> idle share "
+        f"{share:.3f} (profiled window; "
+        f"{1 - busy_us / 1e3 / wall_ms:.3f} against the unprofiled wall); "
+        f"GEMMs {gemm_us / 1e3:.3f} ms/step ({gemm_us / busy_us:.3f} of "
+        f"device time); {ours}; top device ops us/step: "
+        + "; ".join(f"{k[:60]}={v:.1f}" for k, v in top))
+
+
+def _grad_parity(pnames, g_card, g_cpu):
+    """Gradients of one step, tensor by tensor, at TRAIN_GRAD_RTOL /
+    TRAIN_GRAD_FLOOR: (tensors with more than TRAIN_OUTLIER_SHARE of
+    their elements outside, as [(name, outside, elements)], elements
+    outside in all, the tensor with the largest share outside, the
+    largest |diff| over its tensor's largest, and that tensor)."""
+    top = max(float(np.abs(g).max()) for g in g_cpu)
+    failed, outside, most, worst = [], 0, (0.0, "-"), (0.0, "-")
+    for n, gc, gp in zip(pnames, g_card, g_cpu):
+        d = np.abs(gc - gp)
+        own = float(np.abs(gp).max())
+        bad = int((d > TRAIN_GRAD_RTOL * own + TRAIN_GRAD_FLOOR * top).sum())
+        outside += bad
+        if bad / d.size > most[0]:
+            most = (bad / d.size, n)
+        if float(d.max()) > worst[0] * own:
+            worst = (float(d.max()) / max(own, 1e-30), n)
+        if bad > int(TRAIN_OUTLIER_SHARE * d.size):
+            failed.append((n, bad, d.size))
+    return failed, outside, most, worst
+
+
+def _adam_parity(torch, registry, main, state, grads, new_card):
+    """The card's Adam tail against the port's `adam` op run on the CPU
+    from `state` and the card's gradients `grads` ({name: array}):
+    (persistables outside TRAIN_ADAM_RTOL or not identical, largest
+    parameter |diff| over lr, largest moment |diff| over its tensor's
+    largest)."""
+    cpu = torch.device("cpu")
+    ctx = registry.KernelCtx(device=cpu)
+    adam = registry.get_kernel("adam")
+    failed, e_param, e_moment = [], 0.0, 0.0
+    for op in main.global_block().ops:
+        if op.type != "adam":
+            continue
+        ins = {k: [torch.from_numpy(grads[v[0]] if k == "Grad"
+                                    else state[v[0]])]
+               for k, v in op.inputs.items()}
+        out = adam(ctx, ins, op.attrs)
+        lr = float(state[op.inputs["LearningRate"][0]].reshape(-1)[0])
+        for slot, (t,) in out.items():
+            n = op.outputs[slot][0]
+            want, got = t.numpy(), new_card[n]
+            d = np.abs(got - want)
+            if slot == "ParamOut":
+                scale = lr
+                e_param = max(e_param, float(d.max()) / lr)
+            elif slot.startswith("Moment"):
+                scale = float(np.abs(want).max())
+                e_moment = max(e_moment,
+                               float(d.max()) / max(scale, 1e-30))
+            else:
+                if not np.array_equal(got, want):
+                    failed.append(n)
+                continue
+            if (d > TRAIN_ADAM_RTOL * (np.abs(want) + scale)).any():
+                failed.append(n)
+    return failed, e_param, e_moment
+
+
+def phase_train_card_vs_cpu(torch, tfm, core):
+    """The training step on the card against the port's CPU run (plain
+    versions) at Transformer-base width, B 4, T 32, dropout 0, from one
+    scope made by run_startup on the CPU (scope_to_numpy /
+    scope_from_numpy), 3 steps of the copy task, each fetching the loss
+    and every gradient. The CPU runs freely; the card runs each step
+    from the CPU's state. The bounds are stated at TRAIN_LOSS_TOL."""
+    cfg = train_config(tfm, dropout=0.0)
+    B, T, steps = 4, 32, 3
+    main, startup, avg_cost = build_train_program(
+        tfm, core.framework, core.unique_name, core.optimizer, cfg, T)
+    startup.random_seed = SEED + 22
+    init_scope = core.Scope()
+    core.Executor(core.CPUPlace()).run_startup(startup, scope=init_scope)
+    names = [v.name for v in main.persistable_vars()]
+    bop = [op for op in main.global_block().ops
+           if op.type == "backward_macro"][0]
+    pnames, gnames = bop.attrs["param_names"], bop.outputs["Grads"]
+    fetch = [avg_cost] + gnames
+    card, cpu = core.Executor(core.CUDAPlace(0)), core.Executor(
+        core.CPUPlace())
+
+    def step(exe, state, feed):
+        scope = core.scope_from_numpy(state, exe.device)
+        out = exe.run(main, feed=feed, fetch_list=fetch, scope=scope)
+        return [np.asarray(o) for o in out], core.scope_to_numpy(scope,
+                                                                 names)
+    state = core.scope_to_numpy(init_scope, names)
+    feed = copy_task_feed(cfg, B, T, 0)
+    repeat = {}
+    for side, exe in (("card", card), ("cpu", cpu)):
+        (a, sa), (b, sb) = step(exe, state, feed), step(exe, state, feed)
+        repeat[side] = all(np.array_equal(x, y) for x, y in zip(a, b)) \
+            and all(np.array_equal(sa[n], sb[n]) for n in names)
+    losses, lines, failed = {"card": [], "cpu": []}, [], []
+    t_cpu = 0.0
+    for s in range(steps):
+        feed = copy_task_feed(cfg, B, T, s)
+        got, new_card = step(card, state, feed)
+        t = time.perf_counter()
+        want, new_cpu = step(cpu, state, feed)
+        t_cpu += time.perf_counter() - t
+        losses["card"].append(float(got[0]))
+        losses["cpu"].append(float(want[0]))
+        g_bad, g_out, g_most, g_worst = _grad_parity(pnames, got[1:],
+                                                     want[1:])
+        a_bad, a_param, a_moment = _adam_parity(
+            torch, core.registry, main, state, dict(zip(gnames, got[1:])),
+            new_card)
+        p_diff = max(float(np.abs(new_card[n] - new_cpu[n]).max())
+                     for n in pnames)
+        failed += [f"step {s + 1} gradient {n}: {k} of {m} outside"
+                   for n, k, m in g_bad]
+        failed += [f"step {s + 1} Adam tail {n}" for n in a_bad]
+        lines.append(
+            f"step {s + 1}: gradients outside {g_out} of all elements, "
+            f"largest share {g_most[0]:.3e} in {g_most[1]}, largest |diff| "
+            f"/ own max {g_worst[0]:.3e} in {g_worst[1]}; Adam tail against "
+            f"the CPU's adam op on the card's gradients: params |diff| / lr "
+            f"{a_param:.3e}, moments |diff| / own max {a_moment:.3e}, "
+            f"{len(a_bad)} persistables outside; parameters against the "
+            f"CPU run's max |diff| {p_diff:.3e}")
+        state = new_cpu
+    e_loss = max(abs(a - b) for a, b in zip(losses["card"], losses["cpu"]))
+    log(f"[train card-vs-cpu] Transformer-base vocab={cfg.trg_vocab} B={B} "
+        f"T={T} dropout 0, {steps} steps from one scope, the card from the "
+        f"CPU's state at every step: losses cpu "
+        + ", ".join(f"{x:.6f}" for x in losses["cpu"]) + ", card "
+        + ", ".join(f"{x:.6f}" for x in losses["card"])
+        + f"; max |loss diff|={e_loss:.3e} (bound {TRAIN_LOSS_TOL:.0e}); "
+        f"step 1 repeats bit for bit: card {repeat['card']}, cpu "
+        f"{repeat['cpu']}; bounds: gradient |diff| <= {TRAIN_GRAD_RTOL:.0e}"
+        f" x own max + 2^-23 x the step's max, at most "
+        f"{TRAIN_OUTLIER_SHARE:.0e} of a tensor outside; Adam tail within "
+        f"{TRAIN_ADAM_RTOL:.0e} x (|value| + lr or own max), beta powers "
+        f"and lr identical | " + " | ".join(lines)
+        + f"; CPU {t_cpu:.2f} s")
+    check(e_loss <= TRAIN_LOSS_TOL, f"training losses differ by {e_loss}")
+    check(repeat["card"] and repeat["cpu"],
+          f"a training step does not repeat bit for bit: {repeat}")
+    check(not failed, f"training step card vs CPU: {failed[:10]}")
+
+
+def phase_times_flash_bwd(torch, fa, dev):
+    """dq and dk/dv kernel, plain and library times at the training
+    shape: B 64, H 8, T = S = 128, D 64, layout bthd, pad bias of full
+    lengths, non-causal (the encoder and cross attention, 12 of the 18
+    attention ops; causal is logged beside it). The library is the
+    backward of scaled_dot_product_attention (the bias as attn_mask)
+    through autograd, timed alone: one call that computes dq, dk and dv
+    together, so both kernels' lines carry it. The timed calls cycle
+    through input copies that together exceed four times the L2
+    cache."""
+    B, H, T, S, D = TRAIN_B, 8, TRAIN_T, TRAIN_T, 64
+    elems = B * T * H * D
+    per = 4 * (4 * elems + 2 * B * H * T + B * S)
+    L, l2 = _l2_copies(torch, dev, per)
+    gen = torch.Generator(dev).manual_seed(SEED + 23)
+    q, k, v, dout = (torch.randn((L, B, T, H, D), device=dev, generator=gen)
+                     for _ in range(4))
+    bias = torch.zeros((B, 1, 1, S), device=dev)
+    scale = D ** -0.5
+    F = torch.nn.functional
+    out = {}
+    for causal in (False, True):
+        stats = []
+        for j in range(L):
+            o, lse = fa.flash_attention_plain(q[j], k[j], v[j], bias, causal,
+                                              scale, 0, "bthd")
+            stats.append((lse, (dout[j] * o).sum(-1).transpose(1, 2)
+                          .contiguous()))
+
+        def args(i, c=causal):
+            j = i % L
+            return (q[j], k[j], v[j], bias, dout[j], stats[j][0],
+                    stats[j][1], c, scale, 0, "bthd")
+
+        leaves = [[x[j].transpose(1, 2).detach().requires_grad_(True)
+                   for x in (q, k, v)] for j in range(L)]
+        mask = bias
+        if causal:
+            mask = bias + torch.zeros((T, S), device=dev).masked_fill(
+                ~torch.ones((T, S), dtype=torch.bool, device=dev).tril(),
+                float("-inf"))
+        with torch.enable_grad():
+            outs = [F.scaled_dot_product_attention(*lv, attn_mask=mask,
+                                                   scale=scale)
+                    for lv in leaves]
+
+        def library(i):
+            j = i % L
+            return torch.autograd.grad(outs[j], leaves[j],
+                                       dout[j].transpose(1, 2),
+                                       retain_graph=True)
+
+        ldq, ldk, ldv = library(0)
+        kdq = fa.flash_attention_dq(*args(0))
+        kdk, kdv, _db = fa.flash_attention_dkv(*args(0))
+        lib_err = max(float((ldq.transpose(1, 2) - kdq).abs().max()),
+                      float((ldk.transpose(1, 2) - kdk).abs().max()),
+                      float((ldv.transpose(1, 2) - kdv).abs().max()))
+        kq_ms = device_ms(torch, lambda i: fa.flash_attention_dq(*args(i)),
+                          200)
+        kkv_ms = device_ms(torch,
+                           lambda i: fa.flash_attention_dkv(*args(i)), 200)
+        pq_ms = device_ms(
+            torch, lambda i: fa.flash_attention_dq_plain(*args(i)), 30)
+        pkv_ms = device_ms(
+            torch, lambda i: fa.flash_attention_dkv_plain(*args(i)), 30)
+        l_ms = device_ms(torch, library, 100)
+        kq2_ms = device_ms(torch, lambda i: fa.flash_attention_dq(*args(i)),
+                           200)
+        kkv2_ms = device_ms(torch,
+                            lambda i: fa.flash_attention_dkv(*args(i)), 200)
+        pairs = T * (T + 1) // 2 if causal else T * S
+        stats_b = 2 * B * H * T * 4 + B * S * 4
+        res = {}
+        for name, ms, rep, p_ms, n_prod, n_out in (
+                ("flash_attention_dq", kq_ms, kq2_ms, pq_ms, 3, 1),
+                ("flash_attention_dkv", kkv_ms, kkv2_ms, pkv_ms, 4, 2)):
+            flops = 2 * n_prod * B * H * pairs * D
+            nbytes = (4 + n_out) * elems * 4 + stats_b
+            bound_ms, bound_by = _bound(nbytes, flops)
+            log(f"[times] {name} B={B} H={H} T={T} S={S} D={D} bthd pad "
+                f"bias causal={causal} ({L} input copies cycled, L2 {l2} "
+                f"B): kernel_ms={ms:.6f} (repeat {rep:.6f}) bound_us="
+                f"{bound_ms * 1e3:.3f} ({bound_by}: {nbytes} B, {flops} "
+                f"flop) plain_ms={p_ms:.6f} library_ms(sdpa backward, dq "
+                f"dk dv together)={l_ms:.6f} sdpa_vs_kernels_max_abs="
+                f"{lib_err:.3e}")
+            res[name] = {"ms": ms, "plain_ms": p_ms, "bound_ms": bound_ms,
+                         "bound_by": bound_by, "library_ms": l_ms}
+        out[causal] = res
+        del outs, leaves, stats
+    return out[False]
+
+
+def phase_times_layer_norm_bwd(torch, ln, dev):
+    """LayerNorm backward kernel, plain and library
+    (torch.ops.aten.native_layer_norm_backward, timed alone on the
+    forward's mean and rstd) times at the training shape, x [64, 128,
+    512] fp32. The timed calls cycle through input copies that together
+    exceed four times the L2 cache."""
+    shape, C = (TRAIN_B, TRAIN_T, 512), 512
+    n = TRAIN_B * TRAIN_T * 512
+    L, l2 = _l2_copies(torch, dev, n * 4 * 3)
+    gen = torch.Generator(dev).manual_seed(SEED + 24)
+    x = torch.randn((L,) + shape, device=dev, generator=gen)
+    dy = torch.randn((L,) + shape, device=dev, generator=gen)
+    g = 1 + 0.2 * torch.randn(C, device=dev, generator=gen)
+    b = 0.1 * torch.randn(C, device=dev, generator=gen)
+    aten = torch.ops.aten
+    fwd = [aten.native_layer_norm(x[j], [C], g, b, 1e-5) for j in range(L)]
+
+    def kern(i):
+        return ln.layer_norm_bwd(dy[i % L], x[i % L], g, 1e-5)
+
+    def plain(i):
+        return ln.layer_norm_bwd_plain(dy[i % L], x[i % L], g, 1e-5)
+
+    def library(i):
+        j = i % L
+        return aten.native_layer_norm_backward(
+            dy[j], x[j], [C], fwd[j][1], fwd[j][2], g, b,
+            [True, True, True])
+
+    lib = library(0)
+    got = kern(0)
+    lib_err = max(float((a - w).abs().max()) for a, w in zip(got, lib))
+    k_ms = device_ms(torch, kern, 500)
+    p_ms = device_ms(torch, plain, 60)
+    l_ms = device_ms(torch, library, 500)
+    k2_ms = device_ms(torch, kern, 500)
+    rows = n // C
+    nbytes = 3 * n * 4 + 3 * C * 4
+    ops = 16 * n
+    bound_ms, bound_by = _bound(nbytes, ops)
+    log(f"[times] layer_norm_bwd x={list(shape)} fp32 ({rows} rows; {L} "
+        f"input copies "
+        f"cycled, L2 {l2} B): kernel_ms={k_ms:.6f} (repeat {k2_ms:.6f}) "
+        f"bound_us={bound_ms * 1e3:.3f} ({bound_by}: {nbytes} B, {ops} "
+        f"ops) plain_ms={p_ms:.6f} library_ms(native_layer_norm_backward)="
+        f"{l_ms:.6f} library_vs_kernel_max_abs={lib_err:.3e}")
+    return {"ms": k_ms, "plain_ms": p_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by, "library_ms": l_ms}
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -1167,9 +1800,10 @@ def main():
         from paddle_tpu_torch.core.dtypes import convert_dtype
         from paddle_tpu_torch.core.executor import Executor
         from paddle_tpu_torch.core.place import CPUPlace, CUDAPlace
+        from paddle_tpu_torch import optimizer
         from paddle_tpu_torch.core.scope import (Scope, scope_from_numpy,
-                                                 scope_guard)
-        from paddle_tpu_torch.ops import kern
+                                                 scope_guard, scope_to_numpy)
+        from paddle_tpu_torch.ops import kern, registry
         from paddle_tpu_torch.ops.kern import _build
         from paddle_tpu_torch.ops.kern import decode_attention as da
         from paddle_tpu_torch.ops.kern import flash_attention as fa
@@ -1185,7 +1819,8 @@ def main():
         framework=framework, unique_name=unique_name, Executor=Executor,
         CPUPlace=CPUPlace, CUDAPlace=CUDAPlace, Scope=Scope,
         scope_from_numpy=scope_from_numpy, scope_guard=scope_guard,
-        convert_dtype=convert_dtype)
+        scope_to_numpy=scope_to_numpy, convert_dtype=convert_dtype,
+        optimizer=optimizer, registry=registry)
     t_start = time.perf_counter()
     try:
         dev = torch.device("cuda", 0)
@@ -1197,7 +1832,10 @@ def main():
                "dequant_attend": phase_dequant_vs_plain(torch, da, qt,
                                                         dev),
                "layer_norm": phase_layer_norm_vs_plain(torch, ln, dev),
-               "flash_attention": phase_flash_vs_plain(torch, fa, dev)}
+               "flash_attention": phase_flash_vs_plain(torch, fa, dev),
+               "layer_norm_bwd": phase_layer_norm_bwd_vs_plain(torch, ln,
+                                                               dev)}
+        err.update(phase_flash_bwd_vs_plain(torch, fa, dev))
         cfg = tfm.TransformerConfig.base()
         params = base_params(tfm, cfg, SEED)
         # each path's counts are read just after its own run
@@ -1210,11 +1848,16 @@ def main():
         launches.update((k, prog[0][k]) for k in ("layer_norm",
                                                   "flash_attention"))
         _l, p_exe, p_main, p_logits, p_scope, p_src, p_lens, p_ids = prog
+        train = phase_train(torch, kern, tfm, core, dev)
+        launches.update((k, train[0][k]) for k in (
+            "flash_attention_dq", "flash_attention_dkv", "layer_norm_bwd"))
+        _l, t_exe, t_main, t_cost, t_scope, t_feed = train
         phase_card_vs_cpu(tfm, params, cfg)
         phase_int8_card_vs_cpu(tfm, params, cfg)
         phase_int8_vs_fp32(tfm, params, cfg)
         phase_program_card_vs_cpu(core, p_main, p_logits, params, p_src,
                                   p_lens, p_ids, p_exe, p_scope)
+        phase_train_card_vs_cpu(torch, tfm, core)
         times = {"decode_attend": phase_times(torch, da, runs[None][1],
                                               cfg, dev),
                  "quantize_int8_blockwise": phase_times_quant(torch, qt,
@@ -1222,11 +1865,15 @@ def main():
                  "dequant_attend": phase_times_dequant(
                      torch, da, runs["int8"][1], cfg, dev),
                  "layer_norm": phase_times_layer_norm(torch, ln, dev),
-                 "flash_attention": phase_times_flash(torch, fa, dev)}
+                 "flash_attention": phase_times_flash(torch, fa, dev),
+                 "layer_norm_bwd": phase_times_layer_norm_bwd(torch, ln,
+                                                              dev)}
+        times.update(phase_times_flash_bwd(torch, fa, dev))
         for _launches, steps, engine in runs.values():
             phase_step_profile(torch, engine, median_step(steps, 256), cfg)
         phase_program_profile(torch, p_exe, p_main, p_logits, p_scope,
                               p_src, p_lens, p_ids)
+        phase_train_profile(torch, t_exe, t_main, t_cost, t_scope, t_feed)
     except Exception:           # noqa: BLE001 — any failed phase
         traceback.print_exc()
         print("chip_smoke: FAILED", file=sys.stderr)
@@ -1239,7 +1886,12 @@ def main():
              "quantize_int8_blockwise": ("quant.cu", "kern/quant.py:79"),
              "layer_norm": ("layer_norm.cu", "pallas/layer_norm.py:67"),
              "flash_attention": ("flash_attention.cu",
-                                 "pallas/flash_attention.py:234")}
+                                 "pallas/flash_attention.py:234"),
+             "flash_attention_dq": ("flash_attention.cu",
+                                    "pallas/flash_attention.py:331"),
+             "flash_attention_dkv": ("flash_attention.cu",
+                                     "pallas/flash_attention.py:366"),
+             "layer_norm_bwd": ("layer_norm.cu", "pallas/layer_norm.py:78")}
     print(json.dumps({"kernels": [dict(
         name=name, route="cuda", source=f"paddle_tpu_torch/csrc/{src}",
         replaces=f"paddle_tpu/ops/{tpu}", launches=launches[name],

@@ -7,12 +7,14 @@ the reference; `to_torch_dtype` is the one mapping from them to torch
 dtypes. Unlike the reference's x32 mode, 64-bit dtypes stay 64-bit.
 `tensor_from_numpy` moves a numpy array onto a device keeping its
 dtype, including `ml_dtypes.bfloat16` arrays, which numpy knows only as
-an extension type (the port does not import ml_dtypes).
+an extension type (the port does not import ml_dtypes);
+`tensor_to_numpy` brings a tensor back, a bf16 one as float32.
 """
 import numpy as np
 import torch
 
-__all__ = ["convert_dtype", "to_torch_dtype", "tensor_from_numpy"]
+__all__ = ["convert_dtype", "to_torch_dtype", "tensor_from_numpy",
+           "tensor_to_numpy"]
 
 _TORCH = {
     "float32": torch.float32,
@@ -71,3 +73,12 @@ def tensor_from_numpy(a, device, dtype=None):
     if dtype is not None:
         t = t.to(to_torch_dtype(dtype))
     return t.to(device)
+
+
+def tensor_to_numpy(t):
+    """A tensor -> a numpy array on the host in its dtype; bf16 becomes
+    float32 (numpy has no bfloat16 of its own)."""
+    t = t.detach()
+    if t.dtype == torch.bfloat16:
+        t = t.float()
+    return t.cpu().numpy()

@@ -1,16 +1,22 @@
 """The Executor (counterpart of `paddle_tpu/core/executor.py`:
-`Executor(place)`, `run` :443 and `run_startup` :998).
+`Executor(place)`, `run` :443 and `run_startup` :998), for inference
+programs and for training programs (a `backward_macro` op and the
+update ops that `optimizer.Adam.minimize` appends).
 
 `Executor(place)` runs programs on one device: `CUDAPlace(i)` (and the
 default, None, which is the card and raises without CUDA) or
 `CPUPlace()`. `run` puts the feeds on the device in each data var's
 dtype (int64 stays int64, where the reference truncates to int32),
 reads the program's persistables from the scope, runs the pruned op
-list eagerly (see core/trace.py) under `torch.inference_mode()` when
-`is_test` and `torch.no_grad()` otherwise, writes the persistables the
-run produced back to the scope, and returns the fetches (numpy arrays
-with `return_numpy`, a bf16 fetch as float32). The pruned op list is
-cached per (program, program version, fetch names).
+list eagerly (see core/trace.py), writes the persistables the run
+produced back to the scope, and returns the fetches (numpy arrays with
+`return_numpy`, a bf16 fetch as float32). A forward program with
+`is_test` runs under `torch.inference_mode()`, any other under
+`torch.no_grad()`, inside which a training step turns autograd on for
+its forward replay only; its update ops' outputs (the new parameters,
+moments and beta powers) replace the persistables in the scope. Nothing
+in a run waits for the device except reading the fetches. The pruned
+op list is cached per (program, program version, fetch names).
 
 Not ported, and not accepted as arguments: readers (`py_reader`,
 `open_files`), `async_steps`, chaos, telemetry, the memory ledger, NaN
@@ -19,7 +25,7 @@ checks (`check_nan_inf`), `validate`, `use_program_cache`,
 """
 import torch
 
-from .dtypes import tensor_from_numpy
+from .dtypes import tensor_from_numpy, tensor_to_numpy
 from .framework import default_main_program, default_startup_program
 from .place import place_to_device
 from .scope import global_scope
@@ -84,7 +90,8 @@ class Executor:
         if is_test is None:
             is_test = getattr(program, "_is_test", False)
         step = self._step_fn(program, fetch_names, is_test)
-        mode = torch.inference_mode() if is_test else torch.no_grad()
+        mode = torch.inference_mode() if is_test and not step.trains \
+            else torch.no_grad()
         with mode:
             feeds = self._put_feeds(program, dict(feed or {}))
             persist = self._collect_persist(program, scope)
@@ -93,16 +100,9 @@ class Executor:
             scope.set(name, val)
         if not return_numpy:
             return fetches
-        return [_as_numpy(f) for f in fetches]
+        return [tensor_to_numpy(f) for f in fetches]
 
     def run_startup(self, startup_program=None, scope=None):
         return self.run(startup_program or default_startup_program(),
                         feed={}, fetch_list=[], scope=scope)
-
-
-def _as_numpy(t):
-    t = t.detach()
-    if t.dtype == torch.bfloat16:
-        t = t.float()
-    return t.cpu().numpy()
 

@@ -11,12 +11,14 @@ Ported: `Variable`, `Parameter`, `Operator`, `Block`, `Program`
 (`global_block`, `current_block`, `all_parameters`, `list_vars`,
 `persistable_vars`, `clone(for_test)`, `to_desc`, `from_desc`),
 `default_main_program`, `default_startup_program`,
-`switch_main_program`, `switch_startup_program` and `program_guard`.
-Left out: sub-blocks (`create_block`, `rollback`: the control-flow
-layers are not ported), `Block.prepend_op` / `has_var`, the static
-verifier (`Program.verify`), `Variable.astype` / `ndim` (the `cast`
-layer is not ported), `name_scope`, `grad_var_name` and the proto attr
-types of loaded fluid models.
+`switch_main_program`, `switch_startup_program`, `program_guard` and
+`grad_var_name` (with the `_backward_sections` record that
+`core/backward.py` fills). Left out: sub-blocks (`create_block`,
+`rollback`: the control-flow layers are not ported),
+`Block.prepend_op` / `has_var`, the static verifier (`Program.verify`),
+`Variable.astype` / `ndim` (the `cast` layer is not ported),
+`name_scope`, the LR-scheduler list and the proto attr types of loaded
+fluid models.
 """
 import contextlib
 import copy
@@ -29,8 +31,15 @@ from .dtypes import convert_dtype
 __all__ = [
     "Variable", "Parameter", "Operator", "Block", "Program",
     "default_main_program", "default_startup_program", "program_guard",
-    "switch_main_program", "switch_startup_program",
+    "switch_main_program", "switch_startup_program", "grad_var_name",
 ]
+
+GRAD_SUFFIX = "@GRAD"
+
+
+def grad_var_name(name):
+    """The name of `name`'s gradient variable."""
+    return name + GRAD_SUFFIX
 
 
 class Variable:
@@ -160,6 +169,7 @@ class Program:
         self.current_block_idx = 0
         self._version = 0
         self.random_seed = 0
+        self._backward_sections = []    # filled by core/backward.py
         self._is_test = False
 
     def global_block(self):
@@ -210,7 +220,10 @@ class Program:
                 nb.ops.append(nop)
             p.blocks.append(nb)
         if for_test:
+            p._backward_sections = []
             p._prune_backward_for_test()
+        else:
+            p._backward_sections = list(self._backward_sections)
         return p
 
     def _prune_backward_for_test(self):

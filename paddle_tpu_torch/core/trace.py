@@ -1,6 +1,8 @@
 """Program -> step function (counterpart of `paddle_tpu/core/trace.py`:
-`exec_op`, `_prune_ops` :296 and `build_step_fn` :348, for programs
-without a `backward_macro`).
+`exec_op`, `_find_backward` :265, `_prune_ops` :296, `build_step_fn`
+:339 with its `backward_macro` branch, and the stacked Adam tail
+`_plan_update_tail` :47, `_exec_adam_group` :72 and `_exec_adam_run`
+:108 under `FUSE_OPTIMIZER_TAIL` / `FUSE_MAX_ELEMS`).
 
 The reference traces the whole op list into one pure JAX function and
 jit-compiles it. The port runs the same op list eagerly, op by op, on
@@ -12,17 +14,44 @@ fetches (or a persistable write) need and returns
 Op i of the pruned list gets a `KernelCtx` whose generator is seeded
 from (seed, i), as the reference folds the op index into its key.
 
-Not ported: the `backward_macro` autodiff replay, the stacked Adam tail
-(`FUSE_OPTIMIZER_TAIL`), `grad_transform`, the sparse engine and the
-control-flow ops (`cond`, `while_loop`, `scan`, `static_rnn`). A
-program with a backward op raises NotImplementedError: training is a
-later slice of the port.
-"""
-from ..ops.registry import KernelCtx, accel, get_kernel
+A program with a `backward_macro` op (`core/backward.py`) trains:
 
-__all__ = ["build_step_fn", "exec_op"]
+1. the forward ops before it run once under `torch.enable_grad()`,
+   with each parameter it names as a fresh leaf tensor that requires
+   grad (the reference replays them inside `jax.value_and_grad`);
+2. `torch.autograd.grad` of sum(loss.float()) gives every parameter's
+   gradient, which goes into the env under `grad_var_name` in the
+   parameter's dtype (zeros for a parameter the loss does not reach,
+   as JAX gives);
+3. the update ops after it run without autograd. With
+   `FUSE_OPTIMIZER_TAIL`, each run of consecutive `adam` ops with the
+   same hyperparameters and learning rate is grouped by (shape, dtype),
+   and a group of two or more parameters of at most `FUSE_MAX_ELEMS`
+   elements runs the registered `adam` kernel once on stacked inputs;
+   the rest run one by one.
+
+As in the reference, an op output whose variable is `stop_gradient`,
+floating-point and not persistable is cut from the graph (`detach`).
+
+Not ported: `grad_transform` (the parallel slice), the sparse engine
+and row-sparse taps (the sparse slice), `program._remat`
+(`memory_optimize`) and the control-flow ops (`cond`, `while_loop`,
+`scan`, `static_rnn`). A program that asks for `_remat` raises.
+"""
+import torch
+
+from ..ops.registry import KernelCtx, accel, get_kernel
+from .framework import grad_var_name
+
+__all__ = ["build_step_fn", "exec_op", "FUSE_OPTIMIZER_TAIL",
+           "FUSE_MAX_ELEMS"]
 
 _SEED_MIX = 0x9E3779B97F4A7C15
+
+# the reference's values: stack only small parameters (biases, norms),
+# for which one launch per parameter costs more than the stack copy
+FUSE_OPTIMIZER_TAIL = True
+FUSE_MAX_ELEMS = 1 << 18
 
 
 def op_seed(seed, op_idx):
@@ -35,8 +64,9 @@ def op_seed(seed, op_idx):
     return x & ((1 << 63) - 1)
 
 
-def exec_op(env, op, op_idx, seed, is_test, device):
-    """Execute one op against env (name -> tensor)."""
+def exec_op(env, op, op_idx, seed, is_test, device, cut=frozenset()):
+    """Execute one op against env (name -> tensor); outputs named in
+    `cut` are detached from the autograd graph."""
     kern = get_kernel(op.type)
     ins = {}
     for slot, names in op.inputs.items():
@@ -58,7 +88,18 @@ def exec_op(env, op, op_idx, seed, is_test, device):
         if vals is None:
             continue
         for n, v in zip(names, vals):
+            if n in cut and v.is_floating_point():
+                v = v.detach()
             env[n] = v
+
+
+def _find_backward(ops):
+    idxs = [i for i, op in enumerate(ops) if op.type == "backward_macro"]
+    if not idxs:
+        return None
+    if len(idxs) > 1:
+        raise NotImplementedError("multiple backward sections in one program")
+    return idxs[0]
 
 
 def _prune_ops(program, ops, fetch_names):
@@ -72,29 +113,144 @@ def _prune_ops(program, ops, fetch_names):
         if (needed & set(outs)) or any(o in persistable for o in outs):
             kept.append(op)
             needed |= set(op.input_names())
+            if op.type == "backward_macro":
+                needed.add(op.attrs["loss_name"])
     return list(reversed(kept))
+
+
+def _adam_sig(op):
+    a = op.attrs
+    return (a.get("beta1", 0.9), a.get("beta2", 0.999),
+            a.get("epsilon", 1e-8), op.inputs["LearningRate"][0])
+
+
+def _plan_update_tail(tail_ops):
+    """Split the update ops [(op, idx)] into plan entries: ("op", op,
+    idx) runs alone, ("adam_run", [(op, idx), ...]) is a run of
+    consecutive adam ops with one signature. Other ops keep their
+    program order."""
+    plan = []
+    i = 0
+    while i < len(tail_ops):
+        op, idx = tail_ops[i]
+        if op.type != "adam":
+            plan.append(("op", op, idx))
+            i += 1
+            continue
+        sig = _adam_sig(op)
+        j = i + 1
+        while j < len(tail_ops) and tail_ops[j][0].type == "adam" \
+                and _adam_sig(tail_ops[j][0]) == sig:
+            j += 1
+        plan.append(("adam_run", tail_ops[i:j]))
+        i = j
+    return plan
+
+
+def _exec_adam_group(env, ops_, is_test, device):
+    """One stacked update for the parameters of one (shape, dtype)
+    group: the registered `adam` kernel runs once on [N, ...] inputs,
+    with the [1] beta-pow scalars stacked as [N, 1, ...] rows that
+    broadcast along the leading axis."""
+    def stack(slot):
+        return torch.stack([env[op.inputs[slot][0]] for op in ops_])
+
+    p = stack("Param")
+    bshape = (len(ops_),) + (1,) * (p.dim() - 1)
+    ins = {"Param": [p], "Grad": [stack("Grad")],
+           "Moment1": [stack("Moment1")], "Moment2": [stack("Moment2")],
+           "Beta1Pow": [stack("Beta1Pow").reshape(bshape)],
+           "Beta2Pow": [stack("Beta2Pow").reshape(bshape)],
+           "LearningRate": [env[ops_[0].inputs["LearningRate"][0]]]}
+    out = get_kernel("adam")(KernelCtx(is_test=is_test, device=device),
+                             ins, ops_[0].attrs)
+    for i, op in enumerate(ops_):
+        for slot in ("ParamOut", "Moment1Out", "Moment2Out"):
+            env[op.outputs[slot][0]] = out[slot][0][i]
+        for slot, src in (("Beta1PowOut", "Beta1Pow"),
+                          ("Beta2PowOut", "Beta2Pow")):
+            env[op.outputs[slot][0]] = out[slot][0][i].reshape(
+                env[op.inputs[src][0]].shape)
+
+
+def _exec_adam_run(env, run, seed, is_test, device):
+    """One run of consecutive adam ops: parameters of one (shape,
+    dtype) and at most FUSE_MAX_ELEMS elements, two or more of them,
+    update stacked; the rest through exec_op."""
+    groups = {}
+    for op, idx in run:
+        pv = env[op.inputs["Param"][0]]
+        groups.setdefault((tuple(pv.shape), pv.dtype), []).append((op, idx))
+    for (shape, _dtype), members in groups.items():
+        n_elems = 1
+        for s in shape:
+            n_elems *= s
+        if len(members) >= 2 and n_elems <= FUSE_MAX_ELEMS:
+            _exec_adam_group(env, [op for op, _ in members], is_test,
+                             device)
+        else:
+            for op, idx in members:
+                exec_op(env, op, idx, seed, is_test, device)
 
 
 def build_step_fn(program, fetch_names, is_test, device):
     """Returns step(persist, feed, seed) -> (fetches, new_persist),
-    running the pruned op list eagerly on `device`."""
-    block = program.global_block()
-    if any(op.type == "backward_macro" for op in block.ops):
+    running the pruned op list eagerly on `device`; with a
+    `backward_macro` op, the forward under autograd, then the
+    gradients, then the update ops."""
+    if getattr(program, "_remat", False):
         raise NotImplementedError(
-            "this program has a backward_macro op: training (autodiff, the "
-            "optimizer tail) belongs to the port's training slice, which "
-            "is not ported yet; run a forward program, e.g. "
-            "program.clone(for_test=True) of an inference build")
+            "program._remat (memory_optimize) is not ported")
+    block = program.global_block()
     ops = _prune_ops(program, list(block.ops), fetch_names)
     persist_names = [v.name for v in program.persistable_vars()]
+    bi = _find_backward(ops)
+    cut = frozenset(n for n, v in block.vars.items()
+                    if v.stop_gradient and not v.persistable)
 
-    def step(persist, feed, seed):
+    def forward(persist, feed, seed):
         env = dict(feed)
         env.update(persist)
         for i, op in enumerate(ops):
             exec_op(env, op, i, seed, is_test, device)
-        new_persist = {n: env[n] for n in persist_names if n in env}
-        return [env[n] for n in fetch_names], new_persist
+        return env
+
+    def train(persist, feed, seed):
+        bop = ops[bi]
+        pnames = bop.attrs["param_names"]
+        env = dict(feed)
+        env.update(persist)
+        leaves = [env[n].detach().requires_grad_(True) for n in pnames]
+        env.update(zip(pnames, leaves))
+        with torch.enable_grad():
+            for i, op in enumerate(ops[:bi]):
+                exec_op(env, op, i, seed, is_test, device, cut)
+            loss = env[bop.attrs["loss_name"]].float().sum()
+            grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+        for n, leaf, g in zip(pnames, leaves, grads):
+            env[n] = leaf.detach()
+            env[grad_var_name(n)] = (torch.zeros_like(env[n]) if g is None
+                                     else g.to(env[n].dtype))
+        tail = list(enumerate(ops[bi + 1:], start=bi + 1))
+        if not FUSE_OPTIMIZER_TAIL:
+            for i, op in tail:
+                exec_op(env, op, i, seed, is_test, device)
+            return env
+        for entry in _plan_update_tail([(op, i) for i, op in tail]):
+            if entry[0] == "op":
+                exec_op(env, entry[1], entry[2], seed, is_test, device)
+            else:
+                _exec_adam_run(env, entry[1], seed, is_test, device)
+        return env
+
+    run_ops = forward if bi is None else train
+
+    def step(persist, feed, seed):
+        env = run_ops(persist, feed, seed)
+        new_persist = {n: env[n].detach() for n in persist_names
+                       if n in env}
+        return [env[n].detach() for n in fetch_names], new_persist
 
     step.ops = ops
+    step.trains = bi is not None
     return step

@@ -3,8 +3,9 @@
 main program, initialized by an op in the startup program), temporary
 output variables, and the bias and activation ops, minting names with
 `unique_name` in the reference's order so the two packages build equal
-programs. Left out: `create_tmp_variable`, `create_global_variable` and
-`set_variable_initializer`."""
+programs; the optimizer's global variables (the learning rate, the
+accumulators) come from `create_global_variable` and
+`set_variable_initializer`. Left out: `create_tmp_variable`."""
 from . import unique_name
 from .core.framework import (Parameter, default_main_program,
                              default_startup_program)
@@ -83,6 +84,22 @@ class LayerHelper:
         return self.block.create_var(
             name=unique_name.generate(".".join([self.name, "tmp"])),
             dtype=dtype, shape=tuple(shape), stop_gradient=stop_gradient)
+
+    def create_global_variable(self, shape, dtype, persistable=True,
+                               name=None, stop_gradient=True):
+        return self.main_program.global_block().create_var(
+            name=name or unique_name.generate(".".join([self.name,
+                                                        "global"])),
+            shape=tuple(shape), dtype=dtype, persistable=persistable,
+            stop_gradient=stop_gradient)
+
+    def set_variable_initializer(self, var, initializer):
+        """Declare `var` in the startup program and append its
+        initializer op there."""
+        sblock = self.startup_program.global_block()
+        sblock.create_var(name=var.name, shape=var.shape, dtype=var.dtype,
+                          persistable=True)
+        initializer(var, sblock)
 
     def append_bias_op(self, input_var, dim_start=1, bias_attr=None,
                        size=None):

@@ -4,16 +4,22 @@ Same op types, attrs, parameter names and variable names as the
 reference, so a model built with these layers has the reference's
 program description. The signatures are the reference's less the
 arguments it accepts and ignores: `fc(is_test)`, `dropout(seed)`,
-`reshape(actual_shape, act, inplace)` and `multi_head_attention(cache)`
-are not ported, and the arguments after them are keyword-only, so a
-caller who passes one gets a TypeError, not a silent no-op. Ported: `fc`, `embedding`, `layer_norm`,
-`dropout`, `multi_head_attention` (fused and unfused q/k/v, `use_flash`),
-`add_position_encoding`, `argmax`, `scale`, `elementwise_add`,
-`reshape`, `split` and `unsqueeze`: what Transformer inference and
-`greedy_decode` call. Every other layer of the reference's module is
-left out, among them `fc` over a list of inputs,
-`embedding(is_sparse=True)` / `is_distributed=True` (the sparse slice),
-the losses, convolutions, pooling, RNNs and the reductions.
+`reshape(actual_shape, act, inplace)`, `multi_head_attention(cache)`
+and the `name` of `squeeze` and `reduce_sum` are not ported, and the
+arguments after them are keyword-only, so a caller who passes one gets
+a TypeError, not a silent no-op; the
+reference's `softmax_with_cross_entropy(numeric_stable_mode=False)`,
+which it ignores too, raises NotImplementedError. Ported: `fc`,
+`embedding`, `layer_norm`, `dropout`, `multi_head_attention` (fused and
+unfused q/k/v, `use_flash`), `add_position_encoding`, `argmax`,
+`scale`, `elementwise_add`, `reshape`, `split` and `unsqueeze` (what
+Transformer inference and `greedy_decode` call), and the training
+loss's `softmax_with_cross_entropy` (:466), `squeeze` (:863),
+`reduce_sum` (:1080) and `elementwise_mul` / `_div` / `_max`
+(:1142-1150). Every other layer of the reference's module is left out,
+among them `fc` over a list of inputs, `embedding(is_sparse=True)` /
+`is_distributed=True` (the sparse slice), the other losses,
+convolutions, pooling, RNNs and the other reductions.
 """
 import numpy as np
 
@@ -22,7 +28,9 @@ from ..layer_helper import LayerHelper
 
 __all__ = ["fc", "embedding", "layer_norm", "dropout",
            "multi_head_attention", "add_position_encoding", "argmax",
-           "scale", "elementwise_add", "reshape", "split", "unsqueeze"]
+           "scale", "elementwise_add", "elementwise_mul", "elementwise_div",
+           "elementwise_max", "reshape", "split", "squeeze", "unsqueeze",
+           "reduce_sum", "softmax_with_cross_entropy"]
 
 
 def _dims(shape):
@@ -137,6 +145,17 @@ def reshape(x, shape, *, name=None):
                    {"shape": shape})
 
 
+def squeeze(input, axes=None):
+    shape = list(input.shape)
+    if axes:
+        out_shape = tuple(s for i, s in enumerate(shape)
+                          if i not in [a % len(shape) for a in axes])
+    else:
+        out_shape = tuple(s for s in shape if s != 1)
+    return _simple("squeeze", "squeeze", input, out_shape,
+                   {"axes": list(axes or [])})
+
+
 def unsqueeze(input, axes, name=None):
     shape = list(input.shape)
     for a in sorted(axes):
@@ -195,6 +214,62 @@ def _elementwise_layer(op, x, y, axis, act, name):
 
 def elementwise_add(x, y, axis=-1, act=None, name=None):
     return _elementwise_layer("elementwise_add", x, y, axis, act, name)
+
+
+def elementwise_mul(x, y, axis=-1, act=None, name=None):
+    return _elementwise_layer("elementwise_mul", x, y, axis, act, name)
+
+
+def elementwise_div(x, y, axis=-1, act=None, name=None):
+    return _elementwise_layer("elementwise_div", x, y, axis, act, name)
+
+
+def elementwise_max(x, y, axis=-1, act=None, name=None):
+    return _elementwise_layer("elementwise_max", x, y, axis, act, name)
+
+
+def reduce_sum(input, dim=None, keep_dim=False):
+    shape = list(input.shape)
+    if dim is None:
+        out_shape = ()
+    else:
+        dims = [d % len(shape)
+                for d in ([dim] if isinstance(dim, int) else dim)]
+        if keep_dim:
+            out_shape = tuple(1 if i in dims else s
+                              for i, s in enumerate(shape))
+        else:
+            out_shape = tuple(s for i, s in enumerate(shape)
+                              if i not in dims)
+    return _simple("reduce_sum", "reduce_sum", input, out_shape,
+                   {"dim": [dim] if isinstance(dim, int) else dim,
+                    "keep_dim": keep_dim, "reduce_all": dim is None})
+
+
+def softmax_with_cross_entropy(logits, label, soft_label=False,
+                               ignore_index=-100, numeric_stable_mode=True,
+                               return_softmax=False, smooth_epsilon=0.0):
+    """Softmax cross entropy over the last dim: Loss [..., 1] (and the
+    Softmax with `return_softmax`). `smooth_epsilon` > 0 with integer
+    labels is label-smoothed CE in one op, never materializing the
+    [..., K] targets."""
+    if not numeric_stable_mode:
+        raise NotImplementedError(
+            "softmax_with_cross_entropy(numeric_stable_mode=False) is not "
+            "ported: the op always computes in the stable form")
+    helper = LayerHelper("softmax_with_cross_entropy")
+    loss = helper.create_variable_for_type_inference(
+        logits.dtype, tuple(logits.shape[:-1]) + (1,))
+    sm = helper.create_variable_for_type_inference(logits.dtype,
+                                                   logits.shape)
+    helper.append_op("softmax_with_cross_entropy",
+                     {"Logits": [logits], "Label": [label]},
+                     {"Loss": [loss], "Softmax": [sm]},
+                     {"soft_label": soft_label, "ignore_index": ignore_index,
+                      "smooth_epsilon": smooth_epsilon})
+    if return_softmax:
+        return loss, sm
+    return loss
 
 
 def scale(x, scale=1.0, bias=0.0, bias_after_scale=True, act=None,

@@ -1,16 +1,17 @@
 """Transformer-base NMT on PyTorch (counterpart of
 `paddle_tpu/models/transformer.py`): the Program model built with the
-port's layers (`transformer` :121, `encoder` :81, `decoder` :97,
-`build_infer_program` :171 and `greedy_decode` :189), and the
+port's layers (`transformer` :121, `encoder` :81, `decoder` :97, the
+training graph `build_program` :135, `build_infer_program` :171 and
+`greedy_decode` :189), and the
 incremental (KV-cached) decoder (`TransformerConfig` :19,
 `convert_qkv_checkpoint` :248, `_ln_index` :284, `decode_params` :296
 and `IncrementalDecoder` :327 with the fp32 and the int8 cache).
 
 The Program model runs through `core.executor.Executor`; on the card
 its `layer_norm` and `flash_attention` ops launch the hand-written
-kernels of `ops/kern/layer_norm.py` and `ops/kern/flash_attention.py`.
-`build_program` (the training graph with its loss) is not ported: it
-waits for the training slice.
+kernels of `ops/kern/layer_norm.py` and `ops/kern/flash_attention.py`,
+and in a training step (`build_program`, then `optimizer.Adam.minimize`)
+their backward kernels too.
 
 The JAX decoder jit-compiles one prefill per row bucket and one step
 function and donates the cache buffers to them. The port runs eagerly:
@@ -44,7 +45,7 @@ from ..ops.kern.quant import quantize_int8_blockwise
 from ..ops.kernels_nn import _attn_softmax
 
 __all__ = ["TransformerConfig", "transformer", "encoder", "decoder",
-           "build_infer_program", "greedy_decode",
+           "build_program", "build_infer_program", "greedy_decode",
            "convert_qkv_checkpoint", "param_shapes", "decode_params",
            "params_from_numpy", "IncrementalDecoder"]
 
@@ -161,6 +162,36 @@ def transformer(src, src_len, trg, trg_len, cfg):
                      bias_attr=False, name="proj")
 
 
+def build_program(cfg=None, maxlen=None):
+    """The training graph: declares the feeds (src, src_len, trg,
+    trg_len, label) and returns (feeds, avg_cost, token_count), the
+    label-smoothed CE summed over the live target positions divided by
+    their count (at least 1). The reference's `use_noam`, `warmup` and
+    `lr` arguments are accepted and ignored there, and are not ported."""
+    cfg = cfg or TransformerConfig.base()
+    T = maxlen or cfg.max_len
+    src = layers.data("src", shape=[T], dtype="int64")
+    src_len = layers.data("src_len", shape=[], dtype="int64",
+                          append_batch_size=True)
+    trg = layers.data("trg", shape=[T], dtype="int64")
+    trg_len = layers.data("trg_len", shape=[], dtype="int64",
+                          append_batch_size=True)
+    label = layers.data("label", shape=[T], dtype="int64")
+    logits = transformer(src, src_len, trg, trg_len, cfg)
+    loss = layers.softmax_with_cross_entropy(
+        logits, layers.unsqueeze(label, [2]),
+        smooth_epsilon=cfg.label_smooth_eps or 0.0)
+    tmask = layers.sequence_mask(trg_len, maxlen=T, dtype="float32")
+    loss = layers.squeeze(loss, [2]) if len(loss.shape) == 3 else loss
+    masked = layers.elementwise_mul(loss, tmask)
+    token_count = layers.reduce_sum(tmask)
+    avg_cost = layers.elementwise_div(
+        layers.reduce_sum(masked),
+        layers.elementwise_max(token_count,
+                               layers.fill_constant([], "float32", 1.0)))
+    return [src, src_len, trg, trg_len, label], avg_cost, token_count
+
+
 def build_infer_program(cfg=None, maxlen=None):
     """Inference graph (no labels, no loss): (feed names, logits
     [B,T,V]). Build it under a fresh `unique_name.guard` in a fresh
@@ -220,35 +251,27 @@ def greedy_decode(exe, infer_program, logits_var, src, src_len, bos=0,
     return ids
 
 
-def _tensor(a):
-    """A checkpoint value as a tensor: a tensor stays where it is, a
-    numpy or jax array is copied onto the CPU in its own dtype."""
-    return a if isinstance(a, torch.Tensor) else tensor_from_numpy(a, "cpu")
-
-
 def convert_qkv_checkpoint(arrays, cfg, to_fused):
     """Convert a parameter dict between the UNFUSED (per-projection
     enc{i}_q.w_0 / _k / _v) and FUSED (enc{i}_qkv.w_0,
-    dec{i}_cross_kv.w_0) checkpoint layouts, in either direction.
-    Returns a new dict in which the converted weights are tensors; other
-    entries pass through unchanged. Fusion order is [q | k | v] (or
-    [k | v]) along the output axis."""
-    out = dict(arrays)
+    dec{i}_cross_kv.w_0) checkpoint layouts, in either direction. The
+    values may be numpy or jax arrays or tensors; every value of the
+    returned dict is a tensor (a tensor stays on its device, an array is
+    copied onto the CPU in its own dtype). Fusion order is [q | k | v]
+    (or [k | v]) along the output axis."""
+    out = {n: a if isinstance(a, torch.Tensor)
+           else tensor_from_numpy(a, "cpu") for n, a in arrays.items()}
 
     def fuse(base, parts, fused_name):
         names = [f"{base}_{p}.w_0" for p in parts]
-        if not all(n in out for n in names):
-            return
-        out[fused_name] = torch.cat([_tensor(out.pop(n)) for n in names],
-                                    dim=1)
+        if all(n in out for n in names):
+            out[fused_name] = torch.cat([out.pop(n) for n in names], dim=1)
 
     def split(base, parts, fused_name):
-        if fused_name not in out:
-            return
-        pieces = torch.chunk(_tensor(out.pop(fused_name)), len(parts),
-                             dim=1)
-        for p, piece in zip(parts, pieces):
-            out[f"{base}_{p}.w_0"] = piece
+        if fused_name in out:
+            pieces = torch.chunk(out.pop(fused_name), len(parts), dim=1)
+            out.update((f"{base}_{p}.w_0", piece)
+                       for p, piece in zip(parts, pieces))
 
     op = fuse if to_fused else split
     for i in range(cfg.n_layer):

@@ -25,7 +25,7 @@ import ctypes
 import torch
 
 from ..kernels_nn import _attn_softmax
-from . import LAUNCHES, _build, launch
+from . import LAUNCHES, _build, launch, on_cpu
 
 __all__ = ["decode_attend", "decode_attend_plain", "dequant_attend",
            "dequant_attend_plain", "LAUNCHES", "MAX_DH"]
@@ -91,18 +91,6 @@ def _check(name, q, pos, caches, scales=()):
         raise ValueError(f"{name} shape mismatch: {shapes}")
 
 
-def _on_cpu(name, tensors):
-    """True if every tensor lies on the CPU, False if every one lies on
-    one CUDA device; raises otherwise."""
-    devs = {t.device for _n, t in tensors}
-    if all(d.type == "cpu" for d in devs):
-        return True
-    if len(devs) == 1 and next(iter(devs)).type == "cuda":
-        return False
-    raise ValueError(f"{name} takes all-CPU or all-CUDA tensors; got "
-                     + ", ".join(f"{n} on {t.device}" for n, t in tensors))
-
-
 def _check_kernel_inputs(name, tensors, dtypes):
     for (n, t), dt in zip(tensors, dtypes):
         if t.dtype != dt:
@@ -131,7 +119,7 @@ def decode_attend(q, k, v, pos, scale=None):
     (fp32, int32 pos, contiguous) to the CUDA kernel."""
     args = (("q", q), ("k", k), ("v", v), ("pos", pos))
     _check("decode_attend", q, pos, [("k", k), ("v", v)])
-    if _on_cpu("decode_attend", args):
+    if on_cpu(args, "decode_attend"):
         return decode_attend_plain(q, k, v, pos, scale)
     f32 = torch.float32
     _check_kernel_inputs("decode_attend", args,
@@ -157,7 +145,7 @@ def dequant_attend(q, kq, ks, vq, vs, pos, scale=None):
             ("pos", pos))
     _check("dequant_attend", q, pos, [("kq", kq), ("vq", vq)],
            [("ks", ks), ("vs", vs)])
-    if _on_cpu("dequant_attend", args):
+    if on_cpu(args, "dequant_attend"):
         return dequant_attend_plain(q, kq, ks, vq, vs, pos, scale)
     f32, i8 = torch.float32, torch.int8
     _check_kernel_inputs("dequant_attend", args,

@@ -1,6 +1,11 @@
 """Math op kernels (counterpart of `paddle_tpu/ops/kernels_math.py`:
-`elementwise_add` with Fluid's `axis` broadcasting, `scale`, `relu`,
-`mul` and `arg_max`; every other math op is not ported).
+`elementwise_add`, `_mul`, `_div` and `_max` (:36-41) with Fluid's
+`axis` broadcasting, `scale`, `relu`, `mul`, `reduce_sum` (:232) and
+`arg_max`; every other math op is not ported).
+
+Each is differentiable under `torch.autograd`, which the training
+step's forward replay runs them under (core/trace.py); where
+`elementwise_max` ties, both packages split the gradient in halves.
 
 `mul` stays `torch.matmul`: in the reference it is a plain large matrix
 product outside any Pallas kernel (`kernels_math.py:170`), which XLA
@@ -28,10 +33,17 @@ def _bcast(x, y, axis):
     return x, y.reshape(shape)
 
 
-@kernel("elementwise_add")
-def _elementwise_add(ctx, ins, attrs):
-    x, y = _bcast(ins["X"][0], ins["Y"][0], attrs.get("axis", -1))
-    return {"Out": [x + y]}
+def _elementwise(fn):
+    def k(ctx, ins, attrs):
+        x, y = _bcast(ins["X"][0], ins["Y"][0], attrs.get("axis", -1))
+        return {"Out": [fn(x, y)]}
+    return k
+
+
+kernel("elementwise_add")(_elementwise(torch.add))
+kernel("elementwise_mul")(_elementwise(torch.mul))
+kernel("elementwise_div")(_elementwise(torch.div))
+kernel("elementwise_max")(_elementwise(torch.maximum))
 
 
 @kernel("scale")
@@ -62,6 +74,18 @@ def _mul(ctx, ins, attrs):
     x2 = x.reshape(int(np.prod(xs[:xn])), int(np.prod(xs[xn:])))
     y2 = y.reshape(int(np.prod(ys[:yn])), int(np.prod(ys[yn:])))
     return {"Out": [torch.matmul(x2, y2).reshape(xs[:xn] + ys[yn:])]}
+
+
+@kernel("reduce_sum")
+def _reduce_sum(ctx, ins, attrs):
+    x = _x(ins)
+    dims = attrs.get("dim")
+    keep = attrs.get("keep_dim", False)
+    if attrs.get("reduce_all", False) or dims is None:
+        out = x.sum()
+        return {"Out": [out.reshape((1,) * x.dim()) if keep else out]}
+    axes = tuple(d if d >= 0 else d + x.dim() for d in dims)
+    return {"Out": [x.sum(dim=axes, keepdim=keep)]}
 
 
 @kernel("arg_max")

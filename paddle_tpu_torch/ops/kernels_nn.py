@@ -1,5 +1,6 @@
 """Neural-network op kernels (counterpart of
 `paddle_tpu/ops/kernels_nn.py`: `layer_norm` :232, `dropout` :298,
+`softmax_with_cross_entropy` :363 with `_gather_label_logp` :330,
 `sequence_mask` :680, `_attn_softmax` :741,
 `scaled_dot_product_attention` :771, `add_position_encoding` :801 and
 `flash_attention` :909; every other op of the module is not ported).
@@ -17,7 +18,16 @@ per-key bias ([B,S], [B,1,1,S], [1,S] or [1,1,1,S]), such as a full
 Mosaic's 128-lane rule, at least 8 rows) are not inherited: on the card
 every `layer_norm` and `flash_attention` op of Transformer inference
 launches its kernel. Where the flash kernel ran, the op's `Weights`
-output is an empty tensor, as in the reference.
+output is an empty tensor, as in the reference. Both kernels are
+`torch.autograd.Function`s: in the training step's forward replay
+(core/trace.py) their backward kernels run too (flash dq and dk/dv,
+LayerNorm backward); `layer_norm`'s `Mean` and `Variance` carry no
+gradient.
+
+Every op here is differentiable under `torch.autograd`. `dropout` in
+training draws its keep mask from the op's generator, so its gradient
+is that mask times 1 / (1 - p) (`upscale_in_train`) or the mask
+(`downgrade_in_infer`).
 
 The `scaled_dot_product_attention` composition masks the causal part
 with -inf where the kernel uses -1e30; both give such a key weight 0,
@@ -89,6 +99,56 @@ def _dropout(ctx, ins, attrs):
     else:
         out = torch.where(keep, x, zero)
     return {"Out": [out], "Mask": [keep.to(x.dtype)]}
+
+
+def _labels(label, logits):
+    """Integer labels as int64, a trailing label dim of 1 dropped."""
+    lbl = label.long()
+    if lbl.dim() == logits.dim() and lbl.shape[-1] == 1:
+        lbl = lbl.squeeze(-1)
+    return lbl
+
+
+def _gather_label_logp(logp, label, ignore_index=-100):
+    """logp[..., label] per row, kept dim of 1; zero where the label is
+    ignore_index or out of range (no class matches it)."""
+    lbl = _labels(label, logp)
+    K = logp.shape[-1]
+    live = (lbl != ignore_index) & (lbl >= 0) & (lbl < K)
+    picked = torch.gather(logp, -1, lbl.clamp(0, K - 1)[..., None])
+    return torch.where(live[..., None], picked, torch.zeros_like(picked))
+
+
+@kernel("softmax_with_cross_entropy")
+def _softmax_ce(ctx, ins, attrs):
+    """Cross entropy of softmax(logits) in f32. With `smooth_epsilon`
+    and integer labels, the label-smoothed loss against
+    (1 - eps) * onehot + eps / K in the reference's fused form,
+    (1 - eps) * (lse - logit[y]) + eps * (lse - mean(logits)), zero
+    for an ignored or out-of-range label; else soft-label or hard-label
+    CE. Outputs Loss [..., 1] and Softmax in the logits' dtype."""
+    logits, label = ins["Logits"][0], ins["Label"][0]
+    eps = attrs.get("smooth_epsilon", 0.0)
+    ignore = attrs.get("ignore_index", -100)
+    lg = logits.float()
+    if eps and not attrs.get("soft_label", False):
+        lse = torch.logsumexp(lg, dim=-1, keepdim=True)
+        picked = _gather_label_logp(lg, label, ignore)
+        loss = (1.0 - eps) * (lse - picked) \
+            + eps * (lse - lg.mean(dim=-1, keepdim=True))
+        lbl = _labels(label, lg)
+        dead = ((lbl == ignore) | (lbl < 0)
+                | (lbl >= lg.shape[-1]))[..., None]
+        loss = torch.where(dead, torch.zeros_like(loss), loss)
+        return {"Loss": [loss.to(logits.dtype)],
+                "Softmax": [torch.exp(lg - lse).to(logits.dtype)]}
+    logp = torch.log_softmax(lg, dim=-1)
+    if attrs.get("soft_label", False):
+        loss = -(label * logp).sum(dim=-1, keepdim=True)
+    else:
+        loss = -_gather_label_logp(logp, label, ignore)
+    return {"Loss": [loss.to(logits.dtype)],
+            "Softmax": [torch.exp(logp).to(logits.dtype)]}
 
 
 @kernel("sequence_mask")

@@ -1,14 +1,21 @@
 """Tensor creation and manipulation op kernels (counterpart of
 `paddle_tpu/ops/kernels_tensor.py`: `fill_constant`, `reshape`,
-`unsqueeze`, `split`, `uniform_random`, `gaussian_random` and
-`lookup_table`; every other op of the module is not ported).
+`squeeze` (:83), `unsqueeze`, `split`, `uniform_random`,
+`gaussian_random` and `lookup_table`; every other op of the module is
+not ported).
 
 The random ops draw from the op's own `torch.Generator`
 (`KernelCtx.generator`, seeded from the program seed and the op's
 index). They cannot give the reference's `jax.random` numbers: the
-tests compare their statistics. `reshape` and `unsqueeze` return views,
-and do not produce the reference's empty `XShape` output, which no
-layer of the port declares.
+tests compare their statistics. `reshape`, `squeeze` and `unsqueeze`
+return views, and do not produce the reference's empty `XShape`
+output, which no layer of the port declares. Under `torch.autograd`
+`lookup_table`'s table gradient is dense, as the reference's is for a
+table that is not `is_sparse`, and bitwise repeatable on the CPU and
+on the card: it gathers through `torch.nn.functional.embedding`, whose
+backward adds repeated ids in a fixed order. (The backward of `w[ids]`,
+`index_put_` with accumulate, adds them from several CPU threads in
+any order.)
 """
 import torch
 
@@ -36,6 +43,16 @@ def _reshape(ctx, ins, attrs):
     shape = [x.shape[i] if s == 0 else int(s)
              for i, s in enumerate(attrs["shape"])]
     return {"Out": [x.reshape(shape)]}
+
+
+@kernel("squeeze")
+def _squeeze(ctx, ins, attrs):
+    x = _x(ins)
+    axes = attrs.get("axes") or None
+    if axes:
+        return {"Out": [x.squeeze(tuple(a if a >= 0 else a + x.dim()
+                                        for a in axes))]}
+    return {"Out": [x.squeeze()]}
 
 
 @kernel("unsqueeze")
@@ -89,7 +106,7 @@ def _lookup_table(ctx, ins, attrs):
     if ids.dim() >= 1 and ids.shape[-1] == 1:
         ids = ids.squeeze(-1)
     ids = ids.long()
-    out = w[ids.clamp(0, w.shape[0] - 1)]
+    out = torch.nn.functional.embedding(ids.clamp(0, w.shape[0] - 1), w)
     padding_idx = attrs.get("padding_idx", -1)
     if padding_idx is not None and padding_idx >= 0:
         out = torch.where((ids == padding_idx)[..., None],

@@ -21,13 +21,14 @@ names = [m.name for m in pkgutil.walk_packages(
 for n in names:
     importlib.import_module(n)
 import chip_smoke
-assert len(names) >= 37, names
+assert len(names) >= 40, names
 for m in ('ops.kern.quant', 'ops.kern.layer_norm', 'ops.kern.flash_attention',
           'unique_name', 'core.dtypes', 'core.place', 'core.framework',
           'core.scope', 'core.trace', 'core.executor', 'param_attr',
           'initializer', 'layer_helper', 'layers.nn', 'layers.io',
           'layers.tensor', 'layers.sequence', 'ops.registry',
-          'ops.kernels_math', 'ops.kernels_tensor', 'ops.kernels_nn'):
+          'ops.kernels_math', 'ops.kernels_tensor', 'ops.kernels_nn',
+          'ops.kernels_optim', 'core.backward', 'optimizer'):
     assert 'paddle_tpu_torch.' + m in names, (m, names)
 bad = [m for m in sys.modules
        if m == 'jax' or m.startswith('jax.') or m == 'jaxlib'

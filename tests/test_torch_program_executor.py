@@ -17,6 +17,7 @@ from paddle_tpu.core.scope import Scope as JScope
 from paddle_tpu.core.scope import scope_guard as jscope_guard
 from paddle_tpu.models import transformer as jtfm
 from paddle_tpu_torch import layers as tlayers
+from paddle_tpu_torch import optimizer as topt
 from paddle_tpu_torch import unique_name as tun
 from paddle_tpu_torch.core import framework as tfw
 from paddle_tpu_torch.core.executor import Executor
@@ -237,11 +238,26 @@ def test_feeds_keep_their_declared_dtype_and_missing_state_raises(pair):
 
 
 def test_a_program_with_a_backward_op_names_the_training_slice():
-    main = tfw.Program()
-    main.global_block().append_op("backward_macro", {}, {}, {})
-    with pytest.raises(NotImplementedError, match="training slice"):
-        Executor(CPUPlace()).run(main, feed={}, fetch_list=[],
-                                 scope=Scope())
+    """A program with a backward_macro op is run by the training slice:
+    its forward under autograd, then its update ops, which change the
+    parameters in the scope; the part of that slice the port leaves out
+    (`program._remat`, memory_optimize) is refused by name."""
+    main, startup = tfw.Program(), tfw.Program()
+    with tfw.program_guard(main, startup), tun.guard():
+        x = tlayers.data("x", shape=[4])
+        loss = tlayers.reduce_sum(tlayers.fc(x, 1))
+        topt.Adam(0.1).minimize(loss)
+    exe, scope = Executor(CPUPlace()), Scope()
+    exe.run_startup(startup, scope=scope)
+    w0 = scope.get("fc_0.w_0").clone()
+    feed = {"x": np.ones((2, 4), np.float32)}
+    exe.run(main, feed=feed, fetch_list=[loss], scope=scope)
+    assert exe._step_fn(main, [loss.name], False).trains
+    assert not torch.equal(scope.get("fc_0.w_0"), w0)
+    main._remat = True
+    with pytest.raises(NotImplementedError, match="_remat"):
+        Executor(CPUPlace()).run(main, feed=feed, fetch_list=[loss],
+                                 scope=scope)
 
 
 def test_scope_surface_and_bf16_arrays_keep_their_dtype():

@@ -144,6 +144,28 @@ def test_lookup_table(ids_shape, pad):
          {"padding_idx": pad}, exact=True)
 
 
+def test_lookup_table_gradient_is_bitwise_repeatable_on_four_threads():
+    """The table gradient adds the rows of repeated ids in a fixed
+    order: backward passes on four CPU threads give the same bits. (The
+    backward of `w[ids]`, index_put_ with accumulate, adds them from
+    several threads in any order.)"""
+    torch.set_num_threads(4)
+    rng = np.random.default_rng(9)
+    ids = torch.from_numpy(rng.integers(0, 50, (64, 128)))
+    ids[:, 0] = 0
+    w = torch.from_numpy(_randn(rng, 50, 512)).requires_grad_(True)
+    dout = torch.from_numpy(_randn(rng, 64, 128, 512))
+    ctx = treg.KernelCtx(seed=0, is_test=False, device=torch.device("cpu"))
+    grads = []
+    for _ in range(4):
+        w.grad = None
+        out = treg.get_kernel("lookup_table")(
+            ctx, {"W": [w], "Ids": [ids]}, {"padding_idx": -1})["Out"][0]
+        out.backward(dout)
+        grads.append(w.grad.clone())
+    assert all(torch.equal(grads[0], g) for g in grads[1:])
+
+
 @pytest.mark.parametrize("dtype,value", [("float32", 1.5), ("int64", 3.0),
                                          ("float32", -1e9)])
 def test_fill_constant(dtype, value):
