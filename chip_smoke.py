@@ -8,7 +8,7 @@ Run from the root of a checkout, with no arguments:
 
 It builds every kernel of the port from `paddle_tpu_torch/csrc/` (one
 `nvcc` per source, all at once) and holds each kernel against its plain
-PyTorch version on the card. Then it drives three paths with random
+PyTorch version on the card. Then it drives these paths with random
 weights made from a seed:
 
 - Transformer-base greedy decode through `ContinuousScheduler` ->
@@ -24,7 +24,14 @@ weights made from a seed:
   `run_startup`, then `Executor.run` of the training program on the
   copy task at (B, T) = (64, 128) (kernels `flash_attention`,
   `flash_attention_dq`, `flash_attention_dkv`, `layer_norm` and
-  `layer_norm_bwd`).
+  `layer_norm_bwd`);
+- DeepFM CTR training at bench.py --sparse's configuration through the
+  sharded embedding engine, `ParallelExecutor(sparse="shard")`, on the
+  card: vocab 1e8, B 512, 26 fields, embed_dim 8, SGD, the tables
+  seeded on the card by `init_shards` (kernel `lookup_pool`, twice a
+  step); and DeepFM at bench.py's deepfm configuration (vocab 8e6,
+  B 4096, embed_dim 16, Adam) through the plain Executor's `is_sparse`
+  path, which runs no kernel of the port.
 
 For each path it checks that every step went through its kernels. It
 compares the card's logits, tokens, losses and trained parameters with
@@ -178,7 +185,9 @@ def profile_window(torch, fn, n, warm):
     """`fn()` `warm` times, then n times unprofiled and n times under
     torch.profiler, each window ending with a synchronize: (host wall
     ms per call unprofiled, host wall ms per call profiled, {device
-    kernel name: us per call} of the profiled window)."""
+    kernel name: us per call} of the profiled window). A window in
+    which the profiler sees no device time fails the run: the idle share
+    and the device time by kernel are measurements the run must make."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     for _ in range(warm):
@@ -201,6 +210,8 @@ def profile_window(torch, fn, n, warm):
         if e.device_type == DeviceType.CUDA:
             by_name[e.name] = by_name.get(e.name, 0.0) \
                 + e.time_range.elapsed_us() / n
+    check(sum(by_name.values()) > 0,
+          "torch.profiler saw no device time in its window")
     return wall_ms, prof_ms, by_name
 
 
@@ -621,11 +632,6 @@ def phase_step_profile(torch, engine, pick, cfg):
         torch, lambda: dec.step(state, ids, pick), n=20, warm=3)
     busy_us = sum(by_name.values())
     cache = dec.kv_quant or "fp32"
-    if busy_us == 0:
-        log(f"[profile] {cache} decode step, 32 live slots: host wall "
-            f"{wall_ms:.3f} ms/step; device time not visible to "
-            f"torch.profiler (not measured)")
-        return
     share = idle_share(busy_us, prof_ms, f"{cache} decode step")
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
     ours = "; ".join(
@@ -1097,10 +1103,6 @@ def phase_program_profile(torch, exe, main, logits, scope, src, lens,
                        is_test=True)
     wall_ms, prof_ms, by_name = profile_window(torch, once, n=10, warm=3)
     busy_us = sum(by_name.values())
-    if busy_us == 0:
-        log(f"[profile] program run: host wall {wall_ms:.3f} ms/run; "
-            f"device time not visible to torch.profiler (not measured)")
-        return
     share = idle_share(busy_us, prof_ms, "program run")
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
     ours = "; ".join(
@@ -1474,11 +1476,6 @@ def phase_train_profile(torch, exe, main, avg_cost, scope, feed):
         return exe.run(main, feed=feed, fetch_list=[avg_cost], scope=scope)
     wall_ms, prof_ms, by_name = profile_window(torch, once, n=3, warm=2)
     busy_us = sum(by_name.values())
-    if busy_us == 0:
-        log(f"[profile] training step: host wall {wall_ms:.3f} ms/step "
-            f"(unprofiled); device time not visible to torch.profiler (not "
-            f"measured)")
-        return
     share = idle_share(busy_us, prof_ms, "training step")
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:10]
     ours = "; ".join(
@@ -1787,6 +1784,541 @@ def phase_times_layer_norm_bwd(torch, ln, dev):
             "bound_by": bound_by, "library_ms": l_ms}
 
 
+# ------------------------------------------------ the sparse/CTR slice
+# bench.py --sparse (bench.py:1315-1356): DeepFM through the sharded
+# engine on one card, SGD(0.1), ids 30 % from 1000 hot ids
+CTR_B, CTR_F, CTR_D, CTR_VOCAB, CTR_LR = 512, 26, 8, 100_000_000, 0.1
+# bench.py:544-547: DeepFM on the plain Executor, is_sparse, Adam(1e-3)
+DENSE_B, DENSE_VOCAB, DENSE_D, DENSE_LR = 4096, 8_000_000, 16, 1e-3
+# lookup_pool against its plain version at the op's shapes: the
+# registered kernel tolerance (ops/kern/registrations.py); at the
+# engine's shape (F = 1) the kernel copies rows and must be bit-exact
+LOOKUP_TOL = 2e-5
+# its backward (plain PyTorch on either device) against autograd
+# through the plain version: the JAX test's gradient tolerance
+# (tests/test_pallas_embedding.py)
+LOOKUP_GRAD_TOL = 2e-4
+# DeepFM card vs CPU (vocab 1e5, B 64, 3 SGD steps from one scope):
+# losses and every persistable within CTR_TOL (cuBLAS and the CPU BLAS
+# sum the 400-wide tower in different orders, ~1e-7); rows no step
+# touched bit for bit unchanged. Adam, one step from a copied state:
+# the gradients as in training (TRAIN_GRAD_RTOL), and the card's new
+# rows, moments and tower within TRAIN_ADAM_RTOL of the port's
+# sparse_adam / adam ops run on the CPU on the card's own gradients.
+CTR_TOL = 1e-5
+
+
+def ctr_feed(B, F, vocab, seed):
+    """bench.py:1349-1356's traffic: 30 % of the ids from 1000 hot ids,
+    the rest uniform; values in [0, 1); labels 0 / 1."""
+    rng = np.random.RandomState(seed)
+    hot = rng.randint(0, vocab, 1000)
+    flat = np.where(rng.rand(B * F) < 0.3, hot[rng.randint(0, 1000, B * F)],
+                    rng.randint(0, vocab, B * F))
+    return {"feat_ids": flat.reshape(B, F, 1).astype("int64"),
+            "feat_vals": rng.rand(B, F).astype("float32"),
+            "label": rng.randint(0, 2, (B, 1)).astype("float32")}
+
+
+def build_deepfm(core, vocab, D, opt, dist):
+    main, startup = core.framework.Program(), core.framework.Program()
+    with core.framework.program_guard(main, startup), \
+            core.unique_name.guard():
+        _feeds, loss, _prob = core.deepfm.build_program(
+            num_fields=CTR_F, vocab_size=vocab, embed_dim=D,
+            is_distributed=dist)
+        (core.optimizer.SGD(CTR_LR) if opt == "sgd"
+         else core.optimizer.Adam(DENSE_LR)).minimize(loss)
+    main.random_seed = startup.random_seed = SEED
+    return main, startup, loss
+
+
+def _engine_shape_inputs(torch, sp, dev):
+    """The engine's lookup_pool inputs at bench.py --sparse's batch: the
+    distinct rows u_rows [M, D] and inv [M, 1] of M = 512 x 26 ids
+    (`unique_static` of ctr_feed's ids), for D = 1 and 8."""
+    ids = torch.from_numpy(ctr_feed(CTR_B, CTR_F, CTR_VOCAB, 1)[
+        "feat_ids"].reshape(-1)).to(dev)
+    uids, inv, count = sp.unique_static(ids)
+    gen = torch.Generator(dev).manual_seed(SEED + 30)
+    tables = {d: torch.randn((ids.numel(), d), device=dev, generator=gen)
+              for d in (1, 8)}
+    return tables, inv[:, None], int(count)
+
+
+def _op_shape_inputs(torch, dev, seed):
+    """The op's shape, bench.py:544-547's batch over its table: table
+    [8e6, 16], inv [4096, 26] with ~10 % padding (-1), a row with one id
+    five times, a row of padding only, weights in [0.5, 1.5)."""
+    gen = torch.Generator(dev).manual_seed(seed)
+    table = torch.randn((DENSE_VOCAB, DENSE_D), device=dev, generator=gen)
+    inv = torch.randint(0, DENSE_VOCAB, (DENSE_B, CTR_F), device=dev,
+                        generator=gen)
+    pad = torch.rand((DENSE_B, CTR_F), device=dev, generator=gen) < 0.1
+    inv = torch.where(pad, -1, inv)
+    inv[1, :5] = 7
+    inv[3] = -1
+    w = 0.5 + torch.rand((DENSE_B, CTR_F), device=dev, generator=gen)
+    return table, inv, w
+
+
+def phase_lookup_pool_vs_plain(torch, emb, sp, registry, dev):
+    """The lookup_pool kernel against its plain version on the card. At
+    the engine's shapes (F = 1, sum, D 1 and 8, int64 inv) bit for bit.
+    At the op's shapes (table [8e6, 16], inv [4096, 26]; sum and mean,
+    weighted or not; padding, repeated ids, a row of padding only, and a
+    NaN table row that one position looks up) within LOOKUP_TOL, NaNs
+    in the same places; the launch count moves by one a call. The
+    backward (d table, d weights of a mean pool with weights) against
+    autograd through the plain version within LOOKUP_GRAD_TOL, and its
+    d(table) twice bit for bit. The fused_embedding_seq_pool op's kernel
+    function once on the card (ids [R, F, 1] with ids past the table and
+    a padding_idx, a Weight, pooltype "average"): one launch, and within
+    LOOKUP_TOL of the same op run on the CPU."""
+    tables, inv, count = _engine_shape_inputs(torch, sp, dev)
+    worst = 0.0
+    for d, tab in tables.items():
+        n0 = emb.LAUNCHES["lookup_pool"]
+        got = emb.lookup_pool(tab, inv)
+        torch.cuda.synchronize()
+        check(emb.LAUNCHES["lookup_pool"] == n0 + 1, "lookup_pool count")
+        want = emb.lookup_pool_plain(tab, inv)
+        check(torch.equal(got, want), f"lookup_pool D={d} (engine shape) "
+              f"is not bit-exact")
+    table, inv2, w = _op_shape_inputs(torch, dev, SEED + 31)
+    table[11] = float("nan")
+    inv2[5, 2] = 11
+    lines = []
+    for pool in ("sum", "mean"):
+        for weights in (None, w):
+            got = emb.lookup_pool(table, inv2, weights, pool)
+            want = emb.lookup_pool_plain(table, inv2, weights, pool)
+            nan_g, nan_w = torch.isnan(got), torch.isnan(want)
+            check(torch.equal(nan_g, nan_w) and bool(nan_g[5].all())
+                  and int(nan_g.any(1).sum()) == int(
+                      (inv2 == 11).any(1).sum()),
+                  f"lookup_pool {pool}: NaNs differ")
+            err = float((got - want).abs().nan_to_num(0.0).max())
+            worst = max(worst, err)
+            lines.append(f"{pool}{'+w' if weights is not None else ''} "
+                         f"{err:.3e}")
+            check(err <= LOOKUP_TOL, f"lookup_pool {pool}: {err}")
+            check(bool((got[3] == 0).all()), "all-padding row is not 0")
+    table[11] = 0.5
+    op = registry.get_kernel("fused_embedding_seq_pool")
+    ids = torch.where(inv2 < 0, 3, inv2 + 5)[:, :, None]    # 3: padding
+    attrs = {"pooltype": "average", "padding_idx": 3}
+    n0 = emb.LAUNCHES["lookup_pool"]
+    got = op(registry.KernelCtx(device=dev), {"W": [table], "Ids": [ids],
+                                              "Weight": [w]}, attrs)
+    got = got["Out"][0]
+    torch.cuda.synchronize()
+    check(emb.LAUNCHES["lookup_pool"] == n0 + 1,
+          "fused_embedding_seq_pool on the card launched no lookup_pool")
+    cpu = torch.device("cpu")
+    want = op(registry.KernelCtx(device=cpu),
+              {"W": [table.to(cpu)], "Ids": [ids.to(cpu)],
+               "Weight": [w.to(cpu)]}, attrs)["Out"][0]
+    check(emb.LAUNCHES["lookup_pool"] == n0 + 1, "the CPU op launched")
+    op_err = float((got.to(cpu) - want).abs().max())
+    worst = max(worst, op_err)
+    check(op_err <= LOOKUP_TOL, f"fused_embedding_seq_pool card vs CPU: "
+          f"{op_err}")
+    check(bool((got[3] == 0).all()), "op: all-padding row is not 0")
+    dy = torch.randn((DENSE_B, DENSE_D), device=dev,
+                     generator=torch.Generator(dev).manual_seed(SEED + 32))
+    grads = []
+    for _ in range(2):
+        tab = table.clone().requires_grad_(True)
+        wt = w.clone().requires_grad_(True)
+        emb.lookup_pool(tab, inv2, wt, "mean").backward(dy)
+        grads.append((tab.grad, wt.grad))
+    tab = table.clone().requires_grad_(True)
+    wt = w.clone().requires_grad_(True)
+    emb.lookup_pool_plain(tab, inv2, wt, "mean").backward(dy)
+    e_tab, ok_tab = _allclose_err(torch, grads[0][0], tab.grad,
+                                  LOOKUP_GRAD_TOL)
+    e_w, ok_w = _allclose_err(torch, grads[0][1], wt.grad, LOOKUP_GRAD_TOL)
+    same = torch.equal(grads[0][0], grads[1][0]) and torch.equal(
+        grads[0][1], grads[1][1])
+    log(f"[lookup_pool vs plain] engine shapes (M={inv.shape[0]} rows, "
+        f"{count} distinct, D 1 and 8, F 1, int64): bit-exact; op shape "
+        f"(table [{DENSE_VOCAB}, {DENSE_D}], inv [{DENSE_B}, {CTR_F}], "
+        f"~10 % padding, a NaN row): max_abs " + ", ".join(lines)
+        + f" (bound {LOOKUP_TOL:.0e}), NaNs in the same places; backward "
+        f"vs autograd through plain: d_table {e_tab:.3e}, d_w {e_w:.3e} "
+        f"(bound allclose {LOOKUP_GRAD_TOL:.0e}); repeats bit for bit: "
+        f"{same}; fused_embedding_seq_pool op (average, padding_idx, "
+        f"Weight, ids clipped) card vs CPU max_abs {op_err:.3e}, 1 launch")
+    check(ok_tab and ok_w, f"lookup_pool backward: {e_tab}, {e_w}")
+    check(same, "lookup_pool backward does not repeat bit for bit")
+    return worst
+
+
+def phase_deepfm_engine(torch, kern, core, dev):
+    """DeepFM through ParallelExecutor(sparse="shard") on the card at
+    bench.py --sparse's configuration: B 512, F 26, embed_dim 8, deep
+    (400, 400, 400), vocab 1e8, is_distributed tables, SGD(0.1); the
+    tables' initializers stripped and the shards seeded on the card
+    (init_shards). One warm-up step, then 20 steps on one feed. Every
+    launch count is set to 0 just before the 20 steps and read just
+    after: each step launches lookup_pool twice (one lookup a table) and
+    no other kernel. Losses finite and falling."""
+    main, startup, loss = build_deepfm(core, CTR_VOCAB, CTR_D, "sgd", True)
+    tables = core.sparse.discover_tables(main)
+    core.sparse.strip_table_init(startup, tables)
+    torch.cuda.reset_peak_memory_stats(dev)
+    before = torch.cuda.memory_allocated(dev)
+    scope = core.Scope()
+    core.Executor(core.CUDAPlace(0)).run_startup(startup, scope=scope)
+    pexe = core.ParallelExecutor(loss_name=loss.name, main_program=main,
+                                 scope=scope, sparse="shard")
+    t = time.perf_counter()
+    pexe.sparse_engine.init_shards(scope, seed=1)
+    torch.cuda.synchronize()
+    t_init = time.perf_counter() - t
+    feed = ctr_feed(CTR_B, CTR_F, CTR_VOCAB, 0)
+    t = time.perf_counter()
+    losses = [float(pexe.run(feed=feed, fetch_list=[loss])[0])]
+    torch.cuda.synchronize()
+    t_first = time.perf_counter() - t
+    n = 20
+    for name in kern.LAUNCHES:
+        kern.LAUNCHES[name] = 0
+    t0 = time.perf_counter()
+    for _ in range(n):
+        losses.append(float(pexe.run(feed=feed, fetch_list=[loss])[0]))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(kern.LAUNCHES)
+    want = {k: 0 for k in launches}
+    want["lookup_pool"] = 2 * n
+    stats = {tb: scope.get(core.sparse.STATS_PREFIX + tb).cpu().numpy()
+             for tb in tables}
+    uniq = {tb: float(s[1] / s[0]) for tb, s in stats.items()}
+    peak = torch.cuda.max_memory_allocated(dev)
+    log(f"[deepfm engine] ParallelExecutor(sparse='shard') on one card: "
+        f"B={CTR_B} F={CTR_F} embed_dim={CTR_D} deep (400, 400, 400) "
+        f"vocab={CTR_VOCAB} tables {tables} (physical "
+        f"{[pexe.sparse_engine.tables[tb].physical_shape for tb in tables]})"
+        f", SGD({CTR_LR}); init_shards {t_init:.3f} s, warm-up step "
+        f"{t_first:.3f} s; {n} steps wall_s={wall:.3f} examples_per_s="
+        f"{n * CTR_B / wall:.1f} step_ms={wall / n * 1e3:.3f} "
+        f"unique_ratio={uniq} max_memory_allocated={peak} B ({peak - before}"
+        f" B above the {before} B held by earlier phases) "
+        f"LAUNCHES={launches} (required {want}); losses (warm-up, then "
+        f"steps 1-{n}): " + ", ".join(f"{x:.6f}" for x in losses))
+    check(all(np.isfinite(losses)), f"a loss is not finite: {losses}")
+    check(losses[-1] < losses[1], f"loss did not fall: {losses}")
+    check(launches == want, f"LAUNCHES {launches} != {want}")
+    return launches, pexe, loss, feed
+
+
+def phase_deepfm_dense(torch, kern, core, dev):
+    """DeepFM on the plain Executor at bench.py:544-547's configuration:
+    B 4096, F 26, vocab 8e6, embed_dim 16, is_sparse tables (not
+    distributed), Adam(1e-3), run_startup on the card; one warm-up step,
+    then 10 steps. The dense path the engine is held against: it
+    launches no kernel of the port."""
+    main, startup, loss = build_deepfm(core, DENSE_VOCAB, DENSE_D, "adam",
+                                       False)
+    scope = core.Scope()
+    exe = core.Executor(core.CUDAPlace(0))
+    exe.run_startup(startup, scope=scope)
+    feed = ctr_feed(DENSE_B, CTR_F, DENSE_VOCAB, 2)
+    losses = [float(exe.run(main, feed=feed, fetch_list=[loss],
+                            scope=scope)[0])]
+    n = 10
+    for name in kern.LAUNCHES:
+        kern.LAUNCHES[name] = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        losses.append(float(exe.run(main, feed=feed, fetch_list=[loss],
+                                    scope=scope)[0]))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    log(f"[deepfm dense] Executor, is_sparse tables: B={DENSE_B} F={CTR_F} "
+        f"embed_dim={DENSE_D} vocab={DENSE_VOCAB} Adam({DENSE_LR}); {n} "
+        f"steps wall_s={wall:.3f} examples_per_s={n * DENSE_B / wall:.1f} "
+        f"step_ms={wall / n * 1e3:.3f} LAUNCHES={dict(kern.LAUNCHES)}; "
+        f"losses (warm-up, then steps 1-{n}): "
+        + ", ".join(f"{x:.6f}" for x in losses))
+    check(all(np.isfinite(losses)), f"a loss is not finite: {losses}")
+    check(losses[-1] < losses[1], f"loss did not fall: {losses}")
+    check(not any(kern.LAUNCHES.values()), "the dense path launched a "
+          "kernel of the port")
+    return exe, main, loss, scope, feed
+
+
+def _run_ctr(core, main, loss, state, feeds, how, fetch=()):
+    """Run `feeds` from numpy `state` through `how` ("engine-card",
+    "engine-cpu" or "dense-cpu"): (losses, the fetches of the last
+    step, the persistables after it in the logical layout)."""
+    dev = "cpu" if how.endswith("cpu") else "cuda"
+    scope = core.scope_from_numpy(state, dev)
+    names = list(state)
+    if how.startswith("engine"):
+        pexe = core.ParallelExecutor(use_cuda=dev == "cuda",
+                                     loss_name=loss.name, main_program=main,
+                                     scope=scope, sparse="shard")
+        out = [pexe.run(feed=f, fetch_list=[loss, *fetch]) for f in feeds]
+    else:
+        exe = core.Executor(core.CPUPlace())
+        out = [exe.run(main, feed=f, fetch_list=[loss, *fetch], scope=scope)
+               for f in feeds]
+    return ([float(o[0]) for o in out], [np.asarray(x) for x in out[-1][1:]],
+            core.scope_to_numpy(scope, names))
+
+
+def phase_deepfm_card_vs_cpu(torch, core):
+    """The engine on the card, the engine on the CPU and the plain
+    Executor's is_sparse path on the CPU, from one scope made by
+    run_startup on the CPU, at bench.py --sparse's widths with vocab 1e5
+    and B 64. SGD, 3 steps: losses and every persistable within
+    CTR_TOL, untouched rows bit for bit unchanged. Adam, one step from
+    the CPU's state after two: gradients tensor by tensor as in
+    training, the card's tables, moments and tower against the port's
+    sparse_adam / adam ops run on the CPU on the card's gradients within
+    TRAIN_ADAM_RTOL. On the card the engine's step repeats bit for bit
+    (its segment sums add in a fixed order)."""
+    vocab, B = 100_000, 64
+    feeds = [ctr_feed(B, CTR_F, vocab, 10 + s) for s in range(3)]
+    touched = np.unique(np.concatenate([f["feat_ids"].ravel()
+                                        for f in feeds]))
+    res = {}
+    for opt in ("sgd", "adam"):
+        main, startup, loss = build_deepfm(core, vocab, CTR_D, opt, True)
+        scope = core.Scope()
+        core.Executor(core.CPUPlace()).run_startup(startup, scope=scope)
+        names = [v.name for v in main.persistable_vars()]
+        res[opt] = (main, loss, core.scope_to_numpy(scope, names))
+    main, loss, init = res["sgd"]
+    tables = core.sparse.discover_tables(main)
+    runs = {how: _run_ctr(core, main, loss, init, feeds, how)
+            for how in ("engine-card", "engine-cpu", "dense-cpu")}
+    again = _run_ctr(core, main, loss, init, feeds, "engine-card")
+    repeat_sgd = again[0] == runs["engine-card"][0] and all(
+        np.array_equal(again[2][n], runs["engine-card"][2][n])
+        for n in init)
+    card = runs["engine-card"]
+    e_loss = e_state = 0.0
+    unchanged = True
+    untouched = np.setdiff1d(np.arange(vocab), touched)
+    for how in ("engine-cpu", "dense-cpu"):
+        e_loss = max(e_loss, max(abs(a - b) for a, b in
+                                 zip(card[0], runs[how][0])))
+        e_state = max(e_state, max(
+            float(np.abs(card[2][n] - runs[how][2][n]).max()) for n in init))
+    for how in runs:
+        for tb in tables:
+            unchanged &= np.array_equal(runs[how][2][tb][untouched],
+                                        init[tb][untouched])
+    # Adam: two CPU steps make the state, then one step on each side
+    main, loss, init_a = res["adam"]
+    _l, _f, state = _run_ctr(core, main, loss, init_a, feeds[:2],
+                             "engine-cpu")
+    bop = [op for op in main.global_block().ops
+           if op.type == "backward_macro"][0]
+    gnames = bop.outputs["Grads"]
+    l_card, g_card, new_card = _run_ctr(core, main, loss, state, feeds[2:],
+                                        "engine-card", gnames)
+    l_cpu, g_cpu, _new = _run_ctr(core, main, loss, state, feeds[2:],
+                                  "engine-cpu", gnames)
+    again = _run_ctr(core, main, loss, state, feeds[2:], "engine-card",
+                     gnames)
+    repeat_adam = all(np.array_equal(again[2][n], new_card[n])
+                      for n in state)
+    g_bad, g_out, g_most, g_worst = _grad_parity(gnames, g_card, g_cpu)
+    a_bad, a_param, a_moment = _sparse_adam_parity(
+        torch, core.registry, main, state, dict(zip(gnames, g_card)),
+        feeds[2], new_card)
+    log(f"[deepfm card-vs-cpu] vocab={vocab} B={B} F={CTR_F} embed_dim="
+        f"{CTR_D} deep (400, 400, 400). SGD({CTR_LR}), 3 steps, engine on "
+        f"the card / engine on the CPU / dense is_sparse Executor on the "
+        f"CPU: losses " + " / ".join(
+            ", ".join(f"{x:.7f}" for x in runs[h][0]) for h in runs)
+        + f"; max |loss diff| {e_loss:.3e}, max |persistable diff| "
+        f"{e_state:.3e} (bound {CTR_TOL:.0e}); {untouched.size} untouched "
+        f"rows unchanged bit for bit: {unchanged}; card repeats bit for "
+        f"bit: {repeat_sgd}. Adam({DENSE_LR}), one step from the CPU's "
+        f"state after two: loss card {l_card[0]:.7f} cpu {l_cpu[0]:.7f}; "
+        f"gradients outside {g_out} of all elements, largest share "
+        f"{g_most[0]:.3e} in {g_most[1]}, largest |diff| / own max "
+        f"{g_worst[0]:.3e} in {g_worst[1]}; card's update against the "
+        f"CPU's sparse_adam / adam ops on the card's gradients: params "
+        f"|diff| / lr {a_param:.3e}, moments |diff| / own max "
+        f"{a_moment:.3e}, {len(a_bad)} persistables outside (bound "
+        f"{TRAIN_ADAM_RTOL:.0e}); card repeats bit for bit: {repeat_adam}")
+    check(e_loss <= CTR_TOL and abs(l_card[0] - l_cpu[0]) <= CTR_TOL,
+          f"DeepFM losses differ by {e_loss}")
+    check(e_state <= CTR_TOL, f"DeepFM persistables differ by {e_state}")
+    check(unchanged, "an untouched row changed")
+    check(repeat_sgd and repeat_adam, "the engine's step does not repeat "
+          "bit for bit on the card")
+    check(not g_bad, f"DeepFM gradients: {g_bad[:10]}")
+    check(not a_bad, f"DeepFM Adam update: {a_bad[:10]}")
+
+
+def _sparse_adam_parity(torch, registry, main, state, grads, feed,
+                        new_card):
+    """The card's update of one Adam step against the port's `adam` and
+    `sparse_adam` ops run on the CPU from `state` on the card's
+    gradients `grads`: (persistables outside TRAIN_ADAM_RTOL, largest
+    parameter |diff| over lr, largest moment |diff| over its tensor's
+    largest)."""
+    cpu = torch.device("cpu")
+    ctx = registry.KernelCtx(device=cpu)
+    failed, e_param, e_moment = [], 0.0, 0.0
+    for op in main.global_block().ops:
+        if op.type not in ("adam", "sparse_adam"):
+            continue
+        ins = {}
+        for k, names in op.inputs.items():
+            src = [grads[v] if k == "Grad" else feed[v] if k == "Ids"
+                   else state[v] for v in names]
+            ins[k] = [torch.from_numpy(np.array(a)) for a in src]
+        out = registry.get_kernel(op.type)(ctx, ins, op.attrs)
+        lr = float(state[op.inputs["LearningRate"][0]].reshape(-1)[0])
+        for slot, (t,) in out.items():
+            n = op.outputs[slot][0]
+            want, got = t.numpy(), new_card[n]
+            d = np.abs(got - want)
+            if slot == "ParamOut":
+                scale = lr
+                e_param = max(e_param, float(d.max()) / lr)
+            elif slot.startswith("Moment"):
+                scale = float(np.abs(want).max())
+                e_moment = max(e_moment, float(d.max()) / max(scale, 1e-30))
+            else:
+                if not np.array_equal(got, want):
+                    failed.append(n)
+                continue
+            if (d > TRAIN_ADAM_RTOL * (np.abs(want) + scale)).any():
+                failed.append(n)
+    return failed, e_param, e_moment
+
+
+def phase_deepfm_profile(torch, pexe, loss, feed):
+    """Where one engine step's time goes (vocab 1e8): host wall per step
+    over 5 unprofiled steps (after 2 more), then torch.profiler over 5
+    steps: device busy time per step, the idle share, and the device
+    kernels that take it (the port's own: lookup_pool_kernel)."""
+
+    def once():
+        return pexe.run(feed=feed, fetch_list=[loss])
+    wall_ms, prof_ms, by_name = profile_window(torch, once, n=5, warm=2)
+    busy_us = sum(by_name.values())
+    share = idle_share(busy_us, prof_ms, "deepfm engine step")
+    ours = sum(v for k, v in by_name.items() if "lookup_pool_kernel" in k)
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:10]
+    log(f"[profile] deepfm engine step (B={CTR_B}, vocab={CTR_VOCAB}): host "
+        f"wall {wall_ms:.3f} ms/step unprofiled, {prof_ms:.3f} ms/step "
+        f"profiled; device busy {busy_us / 1e3:.3f} ms/step -> idle share "
+        f"{share:.3f} (profiled window; "
+        f"{1 - busy_us / 1e3 / wall_ms:.3f} against the unprofiled wall); "
+        f"{len(by_name)} device kernels, lookup_pool_kernel {ours:.1f} "
+        f"us/step ({ours / busy_us:.3f} of device time); top device ops "
+        f"us/step: " + "; ".join(f"{k[:60]}={v:.1f}" for k, v in top))
+
+
+def phase_deepfm_dense_profile(torch, exe, main, loss, scope, feed):
+    """The dense is_sparse path's step (vocab 8e6, B 4096): host wall,
+    device busy and idle share, as phase_deepfm_profile."""
+
+    def once():
+        return exe.run(main, feed=feed, fetch_list=[loss], scope=scope)
+    wall_ms, prof_ms, by_name = profile_window(torch, once, n=3, warm=2)
+    busy_us = sum(by_name.values())
+    share = idle_share(busy_us, prof_ms, "deepfm dense step")
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
+    log(f"[profile] deepfm dense step (B={DENSE_B}, vocab={DENSE_VOCAB}): "
+        f"host wall {wall_ms:.3f} ms/step unprofiled, {prof_ms:.3f} ms/step "
+        f"profiled; device busy {busy_us / 1e3:.3f} ms/step -> idle share "
+        f"{share:.3f} (profiled window); top device ops us/step: "
+        + "; ".join(f"{k[:60]}={v:.1f}" for k, v in top))
+
+
+def phase_times_lookup_pool(torch, emb, sp, dev):
+    """lookup_pool kernel, plain and library times. The engine's shape
+    (the main path's: u_rows [13312, 8] and [13312, 1], inv [13312, 1]
+    int64; library F.embedding) goes on the kernels line; the op's shape
+    (table [8e6, 16], inv [4096, 26], weighted sum; library
+    F.embedding_bag with per_sample_weights, the padding as weight 0)
+    is logged beside it. Bounds count the bytes these inputs need: each
+    distinct looked-up row once, the indices, weights and output once.
+    The timed calls cycle through input copies that together exceed
+    four times the L2 cache."""
+    F = torch.nn.functional
+    tables, inv, count = _engine_shape_inputs(torch, sp, dev)
+    M = inv.shape[0]
+    out = {}
+    for d in (8, 1):
+        L, l2 = _l2_copies(torch, dev, M * d * 4 + M * 8)
+        tabs = tables[d].repeat(L, 1, 1)
+        invs = inv.repeat(L, 1, 1)
+
+        def kern(i, t=tabs, v=invs):
+            return emb.lookup_pool(t[i % L], v[i % L])
+
+        def plain(i, t=tabs, v=invs):
+            return emb.lookup_pool_plain(t[i % L], v[i % L])
+
+        def library(i, t=tabs, v=invs):
+            return F.embedding(v[i % L][:, 0], t[i % L])
+
+        lib_err = float((library(0) - kern(0)).abs().max())
+        k_ms = device_ms(torch, kern, 500)
+        p_ms = device_ms(torch, plain, 200)
+        l_ms = device_ms(torch, library, 500)
+        k2_ms = device_ms(torch, kern, 500)
+        nbytes = count * d * 4 + M * 8 + M * d * 4
+        bound_ms, bound_by = _bound(nbytes, 0)
+        log(f"[times] lookup_pool engine shape u_rows=[{M}, {d}] inv=[{M}, "
+            f"1] int64 ({count} distinct rows; {L} input copies cycled, L2 "
+            f"{l2} B): kernel_ms={k_ms:.6f} (repeat {k2_ms:.6f}) bound_us="
+            f"{bound_ms * 1e3:.4f} ({bound_by}: {nbytes} B) plain_ms="
+            f"{p_ms:.6f} library_ms(F.embedding)={l_ms:.6f} "
+            f"library_vs_kernel_max_abs={lib_err:.3e}")
+        out[d] = {"ms": k_ms, "plain_ms": p_ms, "bound_ms": bound_ms,
+                  "bound_by": bound_by, "library_ms": l_ms}
+    table, inv2, w = _op_shape_inputs(torch, dev, SEED + 33)
+    R, Fn = inv2.shape
+    L, l2 = _l2_copies(torch, dev, R * Fn * 12)
+    invs = torch.stack([inv2.roll(j, 0) for j in range(L)])
+    ws = torch.stack([w.roll(j, 0) for j in range(L)])
+    w0 = torch.where(invs < 0, 0.0, ws)
+    inv0 = invs.clamp(min=0)
+
+    def kern(i):
+        return emb.lookup_pool(table, invs[i % L], ws[i % L], "sum")
+
+    def plain(i):
+        return emb.lookup_pool_plain(table, invs[i % L], ws[i % L], "sum")
+
+    def library(i):
+        return F.embedding_bag(inv0[i % L], table, mode="sum",
+                               per_sample_weights=w0[i % L])
+
+    lib_err = float((library(0) - kern(0)).abs().max())
+    k_ms = device_ms(torch, kern, 300)
+    p_ms = device_ms(torch, plain, 30)
+    l_ms = device_ms(torch, library, 300)
+    k2_ms = device_ms(torch, kern, 300)
+    valid = inv2 >= 0
+    rows = int(torch.unique(inv2[valid]).numel())
+    nbytes = rows * DENSE_D * 4 + R * Fn * (8 + 4) + R * DENSE_D * 4
+    bound_ms, bound_by = _bound(nbytes, 2 * int(valid.sum()) * DENSE_D)
+    log(f"[times] lookup_pool op shape table=[{DENSE_VOCAB}, {DENSE_D}] "
+        f"inv=[{R}, {Fn}] int64 weighted sum ({rows} distinct rows; {L} "
+        f"index copies cycled, L2 {l2} B): kernel_ms={k_ms:.6f} (repeat "
+        f"{k2_ms:.6f}) bound_us={bound_ms * 1e3:.4f} ({bound_by}: {nbytes} "
+        f"B) plain_ms={p_ms:.6f} library_ms(F.embedding_bag, "
+        f"per_sample_weights)={l_ms:.6f} library_vs_kernel_max_abs="
+        f"{lib_err:.3e}")
+    return out[8]
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -1806,10 +2338,14 @@ def main():
         from paddle_tpu_torch.ops import kern, registry
         from paddle_tpu_torch.ops.kern import _build
         from paddle_tpu_torch.ops.kern import decode_attention as da
+        from paddle_tpu_torch.ops.kern import embedding as emb
         from paddle_tpu_torch.ops.kern import flash_attention as fa
         from paddle_tpu_torch.ops.kern import layer_norm as ln
         from paddle_tpu_torch.ops.kern import quant as qt
+        from paddle_tpu_torch.models import deepfm
         from paddle_tpu_torch.models import transformer as tfm
+        from paddle_tpu_torch.parallel import ParallelExecutor
+        from paddle_tpu_torch.parallel import sparse
         from paddle_tpu_torch.serving import decode as dec_mod
     except ImportError as e:
         print(f"chip_smoke: cannot import the port ({e}); run from the "
@@ -1820,7 +2356,8 @@ def main():
         CPUPlace=CPUPlace, CUDAPlace=CUDAPlace, Scope=Scope,
         scope_from_numpy=scope_from_numpy, scope_guard=scope_guard,
         scope_to_numpy=scope_to_numpy, convert_dtype=convert_dtype,
-        optimizer=optimizer, registry=registry)
+        optimizer=optimizer, registry=registry, deepfm=deepfm,
+        sparse=sparse, ParallelExecutor=ParallelExecutor)
     t_start = time.perf_counter()
     try:
         dev = torch.device("cuda", 0)
@@ -1836,6 +2373,8 @@ def main():
                "layer_norm_bwd": phase_layer_norm_bwd_vs_plain(torch, ln,
                                                                dev)}
         err.update(phase_flash_bwd_vs_plain(torch, fa, dev))
+        err["lookup_pool"] = phase_lookup_pool_vs_plain(torch, emb, sparse,
+                                                        registry, dev)
         cfg = tfm.TransformerConfig.base()
         params = base_params(tfm, cfg, SEED)
         # each path's counts are read just after its own run
@@ -1852,12 +2391,21 @@ def main():
         launches.update((k, train[0][k]) for k in (
             "flash_attention_dq", "flash_attention_dkv", "layer_norm_bwd"))
         _l, t_exe, t_main, t_cost, t_scope, t_feed = train
+        ctr = phase_deepfm_engine(torch, kern, core, dev)
+        launches["lookup_pool"] = ctr[0]["lookup_pool"]
+        _l, c_pexe, c_loss, c_feed = ctr
+        phase_deepfm_profile(torch, c_pexe, c_loss, c_feed)
+        del ctr, c_pexe
+        dense = phase_deepfm_dense(torch, kern, core, dev)
+        phase_deepfm_dense_profile(torch, *dense)
+        del dense
         phase_card_vs_cpu(tfm, params, cfg)
         phase_int8_card_vs_cpu(tfm, params, cfg)
         phase_int8_vs_fp32(tfm, params, cfg)
         phase_program_card_vs_cpu(core, p_main, p_logits, params, p_src,
                                   p_lens, p_ids, p_exe, p_scope)
         phase_train_card_vs_cpu(torch, tfm, core)
+        phase_deepfm_card_vs_cpu(torch, core)
         times = {"decode_attend": phase_times(torch, da, runs[None][1],
                                               cfg, dev),
                  "quantize_int8_blockwise": phase_times_quant(torch, qt,
@@ -1869,6 +2417,8 @@ def main():
                  "layer_norm_bwd": phase_times_layer_norm_bwd(torch, ln,
                                                               dev)}
         times.update(phase_times_flash_bwd(torch, fa, dev))
+        times["lookup_pool"] = phase_times_lookup_pool(torch, emb, sparse,
+                                                       dev)
         for _launches, steps, engine in runs.values():
             phase_step_profile(torch, engine, median_step(steps, 256), cfg)
         phase_program_profile(torch, p_exe, p_main, p_logits, p_scope,
@@ -1891,7 +2441,8 @@ def main():
                                     "pallas/flash_attention.py:331"),
              "flash_attention_dkv": ("flash_attention.cu",
                                      "pallas/flash_attention.py:366"),
-             "layer_norm_bwd": ("layer_norm.cu", "pallas/layer_norm.py:78")}
+             "layer_norm_bwd": ("layer_norm.cu", "pallas/layer_norm.py:78"),
+             "lookup_pool": ("embedding.cu", "pallas/embedding.py:78")}
     print(json.dumps({"kernels": [dict(
         name=name, route="cuda", source=f"paddle_tpu_torch/csrc/{src}",
         replaces=f"paddle_tpu/ops/{tpu}", launches=launches[name],

@@ -14,8 +14,7 @@ continuous-batching scheduler, with an fp32 or an int8 KV cache:
          ops.kern.decode_attention.dequant_attend (CUDA, sm_90a)
 
 and runs Fluid programs built with its own front-end (`core.framework`,
-`layers`, `layer_helper`, `initializer`) through its Executor, as far
-as Transformer inference needs:
+`layers`, `layer_helper`, `initializer`) through its Executor:
 
     models.transformer.build_infer_program / greedy_decode
       -> core.executor.Executor.run -> core.trace (op by op, eagerly)
@@ -23,8 +22,18 @@ as Transformer inference needs:
          kernels_nn), of which layer_norm and flash_attention launch
          ops.kern.layer_norm and ops.kern.flash_attention (CUDA, sm_90a)
 
+with training (`optimizer.SGD` / `Adam` `minimize`: the forward under
+autograd, then the update ops), and trains DeepFM with row-sparse
+tables through that Executor or through the sharded embedding engine
+on one card:
+
+    models.deepfm.build_program(is_distributed=True)
+      -> parallel.ParallelExecutor(sparse="shard").run
+      -> parallel.sparse.SparseEngine (dedup, exchange, row updates)
+      -> ops.kern.embedding.lookup_pool (CUDA, sm_90a)
+
 Entry points run on the card unless the caller passes ``device="cpu"``
-(an Executor: ``CPUPlace()``);
+(an Executor: ``CPUPlace()``; a ParallelExecutor: ``use_cuda=False``);
 without CUDA and without an explicit CPU device they raise.
 """
 __version__ = "0.1.0"

@@ -1,7 +1,7 @@
 """The Executor (counterpart of `paddle_tpu/core/executor.py`:
 `Executor(place)`, `run` :443 and `run_startup` :998), for inference
 programs and for training programs (a `backward_macro` op and the
-update ops that `optimizer.Adam.minimize` appends).
+update ops that `optimizer.SGD` / `Adam` `minimize` appends).
 
 `Executor(place)` runs programs on one device: `CUDAPlace(i)` (and the
 default, None, which is the card and raises without CUDA) or
@@ -14,7 +14,9 @@ produced back to the scope, and returns the fetches (numpy arrays with
 `is_test` runs under `torch.inference_mode()`, any other under
 `torch.no_grad()`, inside which a training step turns autograd on for
 its forward replay only; its update ops' outputs (the new parameters,
-moments and beta powers) replace the persistables in the scope. Nothing
+moments and beta powers) replace the persistables in the scope (a
+row-sparse table's `sparse_sgd` / `sparse_adam` writes its rows in
+place, so the scope keeps the same tensor). Nothing
 in a run waits for the device except reading the fetches. The pruned
 op list is cached per (program, program version, fetch names).
 

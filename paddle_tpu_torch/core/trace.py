@@ -1,8 +1,9 @@
 """Program -> step function (counterpart of `paddle_tpu/core/trace.py`:
-`exec_op`, `_find_backward` :265, `_prune_ops` :296, `build_step_fn`
-:339 with its `backward_macro` branch, and the stacked Adam tail
-`_plan_update_tail` :47, `_exec_adam_group` :72 and `_exec_adam_run`
-:108 under `FUSE_OPTIMIZER_TAIL` / `FUSE_MAX_ELEMS`).
+`exec_op`, `_find_backward` :265, `_prune_ops` :296,
+`_collect_sparse_deltas` :316, `build_step_fn` :339 with its
+`backward_macro` branch and its `sparse_engine` hook, and the stacked
+Adam tail `_plan_update_tail` :47, `_exec_adam_group` :72 and
+`_exec_adam_run` :108 under `FUSE_OPTIMIZER_TAIL` / `FUSE_MAX_ELEMS`).
 
 The reference traces the whole op list into one pure JAX function and
 jit-compiles it. The port runs the same op list eagerly, op by op, on
@@ -28,15 +29,30 @@ A program with a `backward_macro` op (`core/backward.py`) trains:
    same hyperparameters and learning rate is grouped by (shape, dtype),
    and a group of two or more parameters of at most `FUSE_MAX_ELEMS`
    elements runs the registered `adam` kernel once on stacked inputs;
-   the rest run one by one.
+   the rest (`sparse_adam` and `sparse_sgd` among them) run one by one.
+
+Row-sparse tables (`embedding(is_sparse=True)`): every is_sparse
+lookup's `SparseDelta` input is a scalar zero, except that the training
+replay makes each tap named in the backward macro's `sparse_params` a
+leaf of zeros of the gathered shape (ids' shape less a trailing 1, then
+the table's width), whose gradient is the tap's row gradient
+(`<delta>@GRAD`); the table itself is never differentiated. Where a
+tap's ids are made inside the forward, their shape comes from one
+replay of the forward ops without autograd (the reference's
+`jax.eval_shape` probe).
+
+`sparse_engine` (parallel/sparse.py `SparseEngine`): ops it `owns`
+(lookups on its tables and their `sparse_sgd` / `sparse_adam` updates)
+run through `engine.exec(env, op)` instead of their kernels, and the
+engine's own persistables (`engine.collect(env)`) join new_persist.
 
 As in the reference, an op output whose variable is `stop_gradient`,
 floating-point and not persistable is cut from the graph (`detach`).
 
-Not ported: `grad_transform` (the parallel slice), the sparse engine
-and row-sparse taps (the sparse slice), `program._remat`
+Not ported: `grad_transform` (the parallel slice), `program._remat`
 (`memory_optimize`) and the control-flow ops (`cond`, `while_loop`,
-`scan`, `static_rnn`). A program that asks for `_remat` raises.
+`scan`, `static_rnn`), so the delta scan does not enter sub-blocks. A
+program that asks for `_remat` raises.
 """
 import torch
 
@@ -118,6 +134,13 @@ def _prune_ops(program, ops, fetch_names):
     return list(reversed(kept))
 
 
+def _collect_sparse_deltas(ops):
+    """(delta name, table name) for every is_sparse lookup in `ops`."""
+    return [(op.inputs["SparseDelta"][0], op.inputs["W"][0])
+            for op in ops
+            if op.attrs.get("is_sparse") and op.inputs.get("SparseDelta")]
+
+
 def _adam_sig(op):
     a = op.attrs
     return (a.get("beta1", 0.9), a.get("beta2", 0.999),
@@ -193,11 +216,13 @@ def _exec_adam_run(env, run, seed, is_test, device):
                 exec_op(env, op, idx, seed, is_test, device)
 
 
-def build_step_fn(program, fetch_names, is_test, device):
+def build_step_fn(program, fetch_names, is_test, device,
+                  sparse_engine=None):
     """Returns step(persist, feed, seed) -> (fetches, new_persist),
     running the pruned op list eagerly on `device`; with a
     `backward_macro` op, the forward under autograd, then the
-    gradients, then the update ops."""
+    gradients, then the update ops. Ops `sparse_engine` owns run
+    through it."""
     if getattr(program, "_remat", False):
         raise NotImplementedError(
             "program._remat (memory_optimize) is not ported")
@@ -205,40 +230,85 @@ def build_step_fn(program, fetch_names, is_test, device):
     ops = _prune_ops(program, list(block.ops), fetch_names)
     persist_names = [v.name for v in program.persistable_vars()]
     bi = _find_backward(ops)
+    sparse_deltas = _collect_sparse_deltas(ops)
+    eng = sparse_engine
     cut = frozenset(n for n, v in block.vars.items()
                     if v.stop_gradient and not v.persistable)
 
-    def forward(persist, feed, seed):
+    def run_op(env, op, i, seed, cut=frozenset()):
+        if eng is not None and eng.owns(op):
+            eng.exec(env, op)
+        else:
+            exec_op(env, op, i, seed, is_test, device, cut)
+
+    def start_env(persist, feed):
         env = dict(feed)
         env.update(persist)
-        for i, op in enumerate(ops):
-            exec_op(env, op, i, seed, is_test, device)
+        for dname, wname in sparse_deltas:
+            if wname in env:
+                env[dname] = torch.zeros((), dtype=env[wname].dtype,
+                                         device=env[wname].device)
         return env
+
+    def forward(persist, feed, seed):
+        env = start_env(persist, feed)
+        for i, op in enumerate(ops):
+            run_op(env, op, i, seed)
+        return env
+
+    def tap_leaves(env, bop, seed):
+        """{delta name: zero leaf of the gathered shape} for every tap
+        of the backward macro's row-sparse tables."""
+        taps = [(spec["param"], tap) for spec in bop.attrs["sparse_params"]
+                for tap in spec["taps"]]
+        shapes = {t["ids"]: tuple(env[t["ids"]].shape) for _p, t in taps
+                  if t["ids"] in env}
+        missing = {t["ids"] for _p, t in taps} - set(shapes)
+        if missing:
+            probe = dict(env)
+            for i, op in enumerate(ops[:bi]):
+                run_op(probe, op, i, seed)
+            shapes.update((n, tuple(probe[n].shape)) for n in missing)
+        leaves = {}
+        for pname, tap in taps:
+            w = env[pname]
+            ishape = shapes[tap["ids"]]
+            if ishape and ishape[-1] == 1:
+                ishape = ishape[:-1]
+            leaves[tap["delta"]] = torch.zeros(
+                ishape + (w.shape[-1],), dtype=w.dtype,
+                device=w.device).requires_grad_(True)
+        return leaves
 
     def train(persist, feed, seed):
         bop = ops[bi]
         pnames = bop.attrs["param_names"]
-        env = dict(feed)
-        env.update(persist)
-        leaves = [env[n].detach().requires_grad_(True) for n in pnames]
-        env.update(zip(pnames, leaves))
+        env = start_env(persist, feed)
+        leaves = {n: env[n].detach().requires_grad_(True) for n in pnames}
+        leaves.update(tap_leaves(env, bop, seed))
+        env.update(leaves)
         with torch.enable_grad():
             for i, op in enumerate(ops[:bi]):
-                exec_op(env, op, i, seed, is_test, device, cut)
+                run_op(env, op, i, seed, cut)
             loss = env[bop.attrs["loss_name"]].float().sum()
-            grads = torch.autograd.grad(loss, leaves, allow_unused=True)
-        for n, leaf, g in zip(pnames, leaves, grads):
-            env[n] = leaf.detach()
-            env[grad_var_name(n)] = (torch.zeros_like(env[n]) if g is None
-                                     else g.to(env[n].dtype))
+            grads = torch.autograd.grad(loss, list(leaves.values()),
+                                        allow_unused=True)
+        gname = {n: grad_var_name(n) for n in pnames}
+        gname.update((tap["delta"], tap["grad"])
+                     for spec in bop.attrs["sparse_params"]
+                     for tap in spec["taps"])
+        for (n, leaf), g in zip(leaves.items(), grads):
+            env[n] = leaf = leaf.detach()
+            env[gname[n]] = (torch.zeros_like(leaf) if g is None
+                             else g.to(leaf.dtype))
         tail = list(enumerate(ops[bi + 1:], start=bi + 1))
         if not FUSE_OPTIMIZER_TAIL:
             for i, op in tail:
-                exec_op(env, op, i, seed, is_test, device)
+                run_op(env, op, i, seed)
             return env
         for entry in _plan_update_tail([(op, i) for i, op in tail]):
             if entry[0] == "op":
-                exec_op(env, entry[1], entry[2], seed, is_test, device)
+                run_op(env, entry[1], entry[2], seed)
             else:
                 _exec_adam_run(env, entry[1], seed, is_test, device)
         return env
@@ -249,6 +319,8 @@ def build_step_fn(program, fetch_names, is_test, device):
         env = run_ops(persist, feed, seed)
         new_persist = {n: env[n].detach() for n in persist_names
                        if n in env}
+        if eng is not None:
+            new_persist.update(eng.collect(env))
         return [env[n].detach() for n in fetch_names], new_persist
 
     step.ops = ops

@@ -10,16 +10,18 @@ arguments after them are keyword-only, so a caller who passes one gets
 a TypeError, not a silent no-op; the
 reference's `softmax_with_cross_entropy(numeric_stable_mode=False)`,
 which it ignores too, raises NotImplementedError. Ported: `fc`,
-`embedding`, `layer_norm`, `dropout`, `multi_head_attention` (fused and
-unfused q/k/v, `use_flash`), `add_position_encoding`, `argmax`,
-`scale`, `elementwise_add`, `reshape`, `split` and `unsqueeze` (what
-Transformer inference and `greedy_decode` call), and the training
-loss's `softmax_with_cross_entropy` (:466), `squeeze` (:863),
-`reduce_sum` (:1080) and `elementwise_mul` / `_div` / `_max`
-(:1142-1150). Every other layer of the reference's module is left out,
-among them `fc` over a list of inputs, `embedding(is_sparse=True)` /
-`is_distributed=True` (the sparse slice), the other losses,
-convolutions, pooling, RNNs and the other reductions.
+`embedding` (:120, with `is_sparse` and `is_distributed`),
+`layer_norm`, `dropout`, `multi_head_attention` (fused and unfused
+q/k/v, `use_flash`), `add_position_encoding`, `argmax`, `scale`,
+`elementwise_add`, `reshape`, `split` and `unsqueeze` (what
+Transformer inference and `greedy_decode` call), the training loss's
+`softmax_with_cross_entropy` (:466), `squeeze` (:863), `reduce_sum`
+(:1080) and `elementwise_mul` / `_div` / `_max` (:1142-1150), DeepFM's
+`sigmoid_cross_entropy_with_logits` (:487), `mean` (:1060) and
+`elementwise_sub` (:1138), and `square_error_cost` (:496). Every other
+layer of the reference's module is left out, among them `fc` over a
+list of inputs, the other losses, convolutions, pooling, RNNs and the
+other reductions.
 """
 import numpy as np
 
@@ -28,9 +30,11 @@ from ..layer_helper import LayerHelper
 
 __all__ = ["fc", "embedding", "layer_norm", "dropout",
            "multi_head_attention", "add_position_encoding", "argmax",
-           "scale", "elementwise_add", "elementwise_mul", "elementwise_div",
-           "elementwise_max", "reshape", "split", "squeeze", "unsqueeze",
-           "reduce_sum", "softmax_with_cross_entropy"]
+           "scale", "elementwise_add", "elementwise_sub", "elementwise_mul",
+           "elementwise_div", "elementwise_max", "reshape", "split",
+           "squeeze", "unsqueeze", "reduce_sum", "mean",
+           "softmax_with_cross_entropy",
+           "sigmoid_cross_entropy_with_logits", "square_error_cost"]
 
 
 def _dims(shape):
@@ -76,11 +80,16 @@ def embedding(input, size, is_sparse=False, is_distributed=False,
               padding_idx=None, param_attr=None, dtype="float32",
               name=None):
     """lookup_table over a [vocab, dim] table initialized N(0, 0.02).
-    The sparse and distributed table paths are not ported."""
-    if is_sparse or is_distributed:
-        raise NotImplementedError(
-            "embedding(is_sparse=True / is_distributed=True) belongs to "
-            "the port's sparse slice, which is not ported yet")
+
+    is_sparse=True gives the table row gradients, as the reference's
+    SelectedRows path does: the lookup adds a zero "delta" input of the
+    gathered shape (its own variable, `SparseDelta`), core/trace.py
+    differentiates the delta instead of the table, and the optimizer
+    appends one `sparse_sgd` / `sparse_adam` op that updates only the
+    looked-up rows. The taps are recorded on the parameter as
+    `_sparse_lookup` [{"ids", "delta"}]. is_distributed=True marks the
+    table for the sharded engine (parallel/sparse.py,
+    `ParallelExecutor(sparse="shard")`)."""
     helper = LayerHelper("embedding", name=name)
     w = helper.create_parameter(param_attr, shape=_dims(size), dtype=dtype,
                                 default_initializer=NormalInitializer(0.0,
@@ -91,10 +100,18 @@ def embedding(input, size, is_sparse=False, is_distributed=False,
     else:
         out_shape = tuple(in_shape) + (size[1],)
     out = helper.create_variable_for_type_inference(dtype, out_shape)
-    helper.append_op("lookup_table", {"W": [w], "Ids": [input]},
-                     {"Out": [out]},
-                     {"padding_idx": -1 if padding_idx is None
-                      else padding_idx})
+    inputs = {"W": [w], "Ids": [input]}
+    attrs = {"padding_idx": -1 if padding_idx is None else padding_idx}
+    if is_distributed:
+        attrs["is_distributed"] = True
+    if is_sparse:
+        delta = helper.create_variable_for_type_inference(dtype, out_shape)
+        inputs["SparseDelta"] = [delta]
+        attrs["is_sparse"] = True
+        taps = getattr(w, "_sparse_lookup", None) or []
+        taps.append({"ids": input.name, "delta": delta.name})
+        w._sparse_lookup = taps
+    helper.append_op("lookup_table", inputs, {"Out": [out]}, attrs)
     return out
 
 
@@ -216,6 +233,10 @@ def elementwise_add(x, y, axis=-1, act=None, name=None):
     return _elementwise_layer("elementwise_add", x, y, axis, act, name)
 
 
+def elementwise_sub(x, y, axis=-1, act=None, name=None):
+    return _elementwise_layer("elementwise_sub", x, y, axis, act, name)
+
+
 def elementwise_mul(x, y, axis=-1, act=None, name=None):
     return _elementwise_layer("elementwise_mul", x, y, axis, act, name)
 
@@ -246,6 +267,10 @@ def reduce_sum(input, dim=None, keep_dim=False):
                     "keep_dim": keep_dim, "reduce_all": dim is None})
 
 
+def mean(x, name=None):
+    return _simple("mean", "mean", x, ())
+
+
 def softmax_with_cross_entropy(logits, label, soft_label=False,
                                ignore_index=-100, numeric_stable_mode=True,
                                return_softmax=False, smooth_epsilon=0.0):
@@ -270,6 +295,24 @@ def softmax_with_cross_entropy(logits, label, soft_label=False,
     if return_softmax:
         return loss, sm
     return loss
+
+
+def sigmoid_cross_entropy_with_logits(x, label, ignore_index=-100,
+                                      name=None):
+    helper = LayerHelper("sigmoid_cross_entropy_with_logits", name=name)
+    out = helper.create_variable_for_type_inference(x.dtype, x.shape)
+    helper.append_op("sigmoid_cross_entropy_with_logits",
+                     {"X": [x], "Label": [label]}, {"Out": [out]},
+                     {"ignore_index": ignore_index})
+    return out
+
+
+def square_error_cost(input, label):
+    helper = LayerHelper("square_error_cost")
+    out = helper.create_variable_for_type_inference(input.dtype, input.shape)
+    helper.append_op("square_error_cost", {"X": [input], "Y": [label]},
+                     {"Out": [out]}, {})
+    return out
 
 
 def scale(x, scale=1.0, bias=0.0, bias_after_scale=True, act=None,

@@ -1,2 +1,3 @@
-"""Models of the port (counterpart of `paddle_tpu/models/`); this slice
-holds the Transformer's incremental decoder."""
+"""Models of the port (counterpart of `paddle_tpu/models/`): the
+Transformer (`transformer`: the decoder, inference and training
+programs) and DeepFM (`deepfm`)."""

@@ -11,7 +11,8 @@ import torch
 LAUNCHES = {"decode_attend": 0, "dequant_attend": 0,
             "quantize_int8_blockwise": 0, "layer_norm": 0,
             "layer_norm_bwd": 0, "flash_attention": 0,
-            "flash_attention_dq": 0, "flash_attention_dkv": 0}
+            "flash_attention_dq": 0, "flash_attention_dkv": 0,
+            "lookup_pool": 0}
 
 
 def on_cpu(tensors, name):

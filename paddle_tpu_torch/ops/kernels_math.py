@@ -1,7 +1,8 @@
 """Math op kernels (counterpart of `paddle_tpu/ops/kernels_math.py`:
-`elementwise_add`, `_mul`, `_div` and `_max` (:36-41) with Fluid's
-`axis` broadcasting, `scale`, `relu`, `mul`, `reduce_sum` (:232) and
-`arg_max`; every other math op is not ported).
+`elementwise_add`, `_sub`, `_mul`, `_div` and `_max` (:37-41) with
+Fluid's `axis` broadcasting, `scale`, `relu`, `sigmoid` (:76), `mul`,
+`reduce_sum` (:232), `mean` (:241) and `arg_max`; every other math op
+is not ported).
 
 Each is differentiable under `torch.autograd`, which the training
 step's forward replay runs them under (core/trace.py); where
@@ -41,6 +42,7 @@ def _elementwise(fn):
 
 
 kernel("elementwise_add")(_elementwise(torch.add))
+kernel("elementwise_sub")(_elementwise(torch.sub))
 kernel("elementwise_mul")(_elementwise(torch.mul))
 kernel("elementwise_div")(_elementwise(torch.div))
 kernel("elementwise_max")(_elementwise(torch.maximum))
@@ -61,6 +63,11 @@ def _scale(ctx, ins, attrs):
 @kernel("relu")
 def _relu(ctx, ins, attrs):
     return {"Out": [torch.relu(_x(ins))]}
+
+
+@kernel("sigmoid")
+def _sigmoid(ctx, ins, attrs):
+    return {"Out": [torch.sigmoid(_x(ins))]}
 
 
 @kernel("mul")
@@ -86,6 +93,11 @@ def _reduce_sum(ctx, ins, attrs):
         return {"Out": [out.reshape((1,) * x.dim()) if keep else out]}
     axes = tuple(d if d >= 0 else d + x.dim() for d in dims)
     return {"Out": [x.sum(dim=axes, keepdim=keep)]}
+
+
+@kernel("mean")
+def _mean(ctx, ins, attrs):
+    return {"Out": [_x(ins).mean()]}
 
 
 @kernel("arg_max")

@@ -1,6 +1,7 @@
 """Neural-network op kernels (counterpart of
 `paddle_tpu/ops/kernels_nn.py`: `layer_norm` :232, `dropout` :298,
 `softmax_with_cross_entropy` :363 with `_gather_label_logp` :330,
+`sigmoid_cross_entropy_with_logits` :400, `square_error_cost` :409,
 `sequence_mask` :680, `_attn_softmax` :741,
 `scaled_dot_product_attention` :771, `add_position_encoding` :801 and
 `flash_attention` :909; every other op of the module is not ported).
@@ -149,6 +150,24 @@ def _softmax_ce(ctx, ins, attrs):
         loss = -_gather_label_logp(logp, label, ignore)
     return {"Loss": [loss.to(logits.dtype)],
             "Softmax": [torch.exp(logp).to(logits.dtype)]}
+
+
+@kernel("sigmoid_cross_entropy_with_logits")
+def _sigmoid_ce(ctx, ins, attrs):
+    """max(x, 0) - x * label + log1p(exp(-|x|)), zero where the label
+    equals `ignore_index`; at x = 0 the max splits its gradient in
+    halves, as jnp.maximum does."""
+    x, label = _x(ins), ins["Label"][0]
+    loss = torch.maximum(x, torch.zeros_like(x)) - x * label \
+        + torch.log1p(torch.exp(-torch.abs(x)))
+    ii = attrs.get("ignore_index", -100)
+    loss = torch.where(label == ii, torch.zeros_like(loss), loss)
+    return {"Out": [loss]}
+
+
+@kernel("square_error_cost")
+def _square_error_cost(ctx, ins, attrs):
+    return {"Out": [torch.square(ins["X"][0] - ins["Y"][0])]}
 
 
 @kernel("sequence_mask")

@@ -1,8 +1,8 @@
 """Tensor creation and manipulation op kernels (counterpart of
 `paddle_tpu/ops/kernels_tensor.py`: `fill_constant`, `reshape`,
 `squeeze` (:83), `unsqueeze`, `split`, `uniform_random`,
-`gaussian_random` and `lookup_table`; every other op of the module is
-not ported).
+`gaussian_random` and `lookup_table` (:348); every other op of the
+module is not ported).
 
 The random ops draw from the op's own `torch.Generator`
 (`KernelCtx.generator`, seeded from the program seed and the op's
@@ -101,12 +101,17 @@ def _gaussian_random(ctx, ins, attrs):
 def _lookup_table(ctx, ins, attrs):
     """Rows of W at Ids (clipped to the table, as the reference's
     jnp.take; a trailing ids dim of 1 is dropped); rows whose id is
-    padding_idx are zero."""
+    padding_idx are zero. An `is_sparse` lookup's `SparseDelta` (the
+    row-gradient tap: a scalar zero outside the training replay, zeros
+    of the gathered shape inside it) is added before the padding mask,
+    so padded positions get zero row gradients (`kernels_tensor.py:356`)."""
     w, ids = ins["W"][0], ins["Ids"][0]
     if ids.dim() >= 1 and ids.shape[-1] == 1:
         ids = ids.squeeze(-1)
     ids = ids.long()
     out = torch.nn.functional.embedding(ids.clamp(0, w.shape[0] - 1), w)
+    if ins.get("SparseDelta"):
+        out = out + ins["SparseDelta"][0]
     padding_idx = attrs.get("padding_idx", -1)
     if padding_idx is not None and padding_idx >= 0:
         out = torch.where((ids == padding_idx)[..., None],

@@ -11,13 +11,16 @@ string. `ctx` (KernelCtx) gives the op its device, the executor's mode
 device seeded from the program seed and the op's index) and the
 hand-written-kernel seam `accel`.
 
-`accel(op_type)` is the one place where an op reaches a Hopper kernel:
-for "layer_norm" and "flash_attention" it returns the `try_*` entry of
-`ops/kern/layer_norm.py` / `ops/kern/flash_attention.py`, which runs
+`accel(op_type)` is where the layer_norm and flash_attention ops reach
+their Hopper kernels: for "layer_norm" and "flash_attention" it returns the `try_*` entry of
+`ops/kern/layer_norm.py` / `ops/kern/flash_attention.py`; each runs
 the kernel's wrapper (the CUDA kernel on the card, its plain version on
 the CPU) or returns None when the shapes fail the kernel's static check
 (`supports`), and the op then runs its composition. A caught exception
-never decides it. The reference's `PADDLE_TPU_KERN` switch, which turns
+never decides it. The `fused_embedding_seq_pool` op and the sharded
+engine (parallel/sparse.py) call `ops/kern/embedding.lookup_pool`
+directly: their inputs are always 2-D, so a static check has nothing
+to reject. The reference's `PADDLE_TPU_KERN` switch, which turns
 every kernel off, is not ported: the port has no switch that turns a
 kernel off. `has_kernel`, `autocast` (AMP) and `closest_kernels` are
 not ported either.

@@ -28,7 +28,10 @@ for m in ('ops.kern.quant', 'ops.kern.layer_norm', 'ops.kern.flash_attention',
           'initializer', 'layer_helper', 'layers.nn', 'layers.io',
           'layers.tensor', 'layers.sequence', 'ops.registry',
           'ops.kernels_math', 'ops.kernels_tensor', 'ops.kernels_nn',
-          'ops.kernels_optim', 'core.backward', 'optimizer'):
+          'ops.kernels_optim', 'core.backward', 'optimizer',
+          'ops.kern.embedding', 'ops.kernels_extra', 'layers.ops',
+          'models.deepfm', 'parallel', 'parallel.mesh', 'parallel.sparse',
+          'parallel.parallel_executor'):
     assert 'paddle_tpu_torch.' + m in names, (m, names)
 bad = [m for m in sys.modules
        if m == 'jax' or m.startswith('jax.') or m == 'jaxlib'
@@ -101,6 +104,27 @@ def test_entry_points_raise_without_cuda_unless_cpu_is_asked(entry,
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         build(device="cuda")
     assert build(device="cpu") is not None
+
+
+def test_parallel_executor_runs_on_the_card_unless_the_cpu_is_asked(
+        monkeypatch):
+    from paddle_tpu_torch import layers, optimizer, unique_name
+    from paddle_tpu_torch.core import framework
+    from paddle_tpu_torch.parallel import ParallelExecutor, local_mesh
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    main, startup = framework.Program(), framework.Program()
+    with framework.program_guard(main, startup), unique_name.guard():
+        ids = layers.data("ids", shape=[2, 1], dtype="int64")
+        emb = layers.embedding(ids, size=[10, 4], is_sparse=True,
+                               is_distributed=True)
+        optimizer.SGD(0.1).minimize(layers.mean(emb))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        ParallelExecutor(main_program=main, sparse="shard")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        local_mesh()
+    pexe = ParallelExecutor(use_cuda=False, main_program=main,
+                            sparse="shard")
+    assert pexe.sparse_engine.device == torch.device("cpu")
 
 
 def test_resolve_device_takes_cpu_without_touching_torch_state():
